@@ -1,22 +1,27 @@
 """pffdtd_tpu_torch — the PyTorch + CUDA port of pffdtd_tpu for NVIDIA Hopper.
 
-The JAX package `pffdtd_tpu` is the reference; this package computes the same
-single-step FDTD update (mirror halo flips, adjacency-masked 7/13-point
-stencil with the leapfrog, the lossy-boundary ODE, Engquist-Majda ABCs,
-sources and receivers) with PyTorch tensors on the host side and two
-hand-written CUDA kernels on the card.  Nothing here imports `jax`, and
-`h5py` is imported only inside the two sim-folder I/O functions.
+The JAX package `pffdtd_tpu` is the reference; this package computes the
+same FDTD update (mirror halo flips, adjacency-masked 7/13-point stencil with
+the leapfrog, the lossy-boundary ODE, Engquist-Majda ABCs, sources and
+receivers) with PyTorch tensors on the host side and hand-written CUDA
+kernels on the card, one step per launch (K1 + K2) or TB steps per launch
+(K3).  Nothing here imports `jax` or `pffdtd_tpu`, and `h5py` is imported
+only inside the sim-folder reader and writer.
 
 Subpackages
 -----------
-- ``io``       numpy-only sim-folder dataclasses + lazy HDF5 read/write
-- ``engine``   coefficients, host-side static arrays, the TorchEngine runner
-- ``kernels``  K1 (stencil + ABC) and K2 (lossy boundary) wrappers, each
-               beside its plain PyTorch version, and the nvcc/ctypes builder
-- ``csrc``     the CUDA C++ sources of K1 and K2
-- ``scene``    synthetic box scenes and the in-memory rotate/fold/sort
-- ``convert``  state carried across from the JAX engine's layouts
-- ``cli``      ``python -m pffdtd_tpu_torch.cli sim --data_dir DIR``
+- ``io``         numpy-only sim-folder dataclasses + lazy HDF5 read/write
+- ``engine``     coefficients, host-side static arrays and tile lists, the
+                 TorchEngine runner
+- ``kernels``    K1 (stencil + ABC), K2 (lossy boundary), K3 (TB steps per
+                 sweep) and K4 (bandwidth probe) wrappers, each beside its
+                 plain PyTorch version, and the nvcc/ctypes build step
+- ``csrc``       the CUDA C++ sources of K1-K4
+- ``scene``      synthetic box scenes and the in-memory rotate/fold/sort
+- ``consts``, ``comms``, ``utils``, ``voxelizer``
+                 copies of the JAX package's numpy-only helpers
+- ``convert``    state carried across from the JAX engine's layouts
+- ``cli``        ``python -m pffdtd_tpu_torch.cli sim --data_dir DIR``
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -2,10 +2,11 @@
 pffdtd_tpu/cli.py):
 
     python -m pffdtd_tpu_torch.cli sim --data_dir DIR [--f64] [--nsteps N]
-                                       [--device cuda]
+        [--device cuda|cpu] [--backend auto|step|pair|tb] [--tb N]
 
-Runs the sim folder through `TorchEngine` and writes `sim_outs.h5` with the
-JAX package's writer (byte-compatible with the reference).
+Runs the sim folder through `TorchEngine` on the card (or on the CPU with
+`--device cpu`, through the kernels' plain versions) and writes
+`sim_outs.h5` with the port's writer (byte-compatible with the reference).
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ def _cmd_sim(args):
     from pffdtd_tpu_torch.engine.torch_engine import TorchEngine
 
     dtype = np.float64 if args.f64 else np.float32
-    eng = TorchEngine(args.data_dir, dtype=dtype, device=args.device)
+    eng = TorchEngine(args.data_dir, dtype=dtype, device=args.device,
+                      backend=args.backend, tb=args.tb)
     eng.run(chunk=args.nsteps)
     eng.save_outputs(args.data_dir)
     eng.print_last_samples(5)
@@ -28,6 +30,8 @@ def _cmd_sim(args):
 
 
 def main(argv=None):
+    from pffdtd_tpu_torch.engine.torch_engine import BACKENDS
+
     p = argparse.ArgumentParser(prog="pffdtd_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     ps = sub.add_parser("sim", help="run the FDTD engine on a sim folder")
@@ -35,9 +39,15 @@ def main(argv=None):
     ps.add_argument("--f64", action="store_true", help="double precision")
     ps.add_argument("--nsteps", type=int, default=None,
                     help="progress block size")
-    ps.add_argument("--device", default="cpu",
-                    help="torch device: cpu (plain versions) or cuda "
-                         "(hand-written kernels)")
+    ps.add_argument("--device", default="cuda",
+                    help="torch device: cuda (hand-written kernels, the "
+                         "default) or cpu (their plain versions)")
+    ps.add_argument("--backend", default="auto", choices=BACKENDS,
+                    help="route: step (K1+K2 per step), tb (K3, --tb steps "
+                         "per sweep), pair (tb with 2 steps), auto (step: "
+                         "the faster route on the H100)")
+    ps.add_argument("--tb", type=int, default=3,
+                    help="steps per sweep of --backend tb (2..8)")
     ps.set_defaults(fn=_cmd_sim)
     args = p.parse_args(argv)
     args.fn(args)

@@ -75,3 +75,117 @@ def state_to_tiles(x, node_slot, n_tiles: int, T: int) -> np.ndarray:
     flat[:, np.asarray(node_slot)] = x
     return np.ascontiguousarray(np.moveaxis(flat.reshape(MMb, n_tiles, T),
                                             1, 0))
+
+
+# ------------------------------------------ pair/TB branch-state families
+# The JAX pair and TB kernels keep each lossy node's branch states in the
+# layout of the axis-plane family that took it, or packed in stray chunks
+# (pallas_boundary.py:906-931, 1023-1069, 1223-1268), with the branch dim
+# padded from MMb to MZ:
+#   z-planes (Nxp, P, MZ, Nyw)  [x, p, m, y]
+#   y-planes (Nxp, P, MZ, W)    [x, p, m, z - z0]
+#   x-planes (P, Nyp, MZ, Nzp)  [p, y, m, z]
+#   strays   (chunks, MZ, TS)   [chunk, m, lane], slot = chunk*TS + lane
+# A node belongs to the plane whose ssaf sheet is non-zero at it (every
+# lossy node has a cut leg, so ssaf > 0).  Node ids index the lossy-node
+# arrays, which the port and the JAX engine order alike.
+def _family_index(planes, strays, data):
+    """{family: (node ids, index tuple into the family's state array with
+    the branch axis left as a slice)}."""
+    g = data.grid
+    bnl = np.asarray(data.bnl_ixyz, np.int64)
+    ix, iy, iz = bnl // (g.Ny * g.Nz), (bnl // g.Nz) % g.Ny, bnl % g.Nz
+    seen = np.zeros(bnl.size, np.int64)
+    out = {}
+    fams = {"z": getattr(planes, "z", None), "y": getattr(planes, "y", None),
+            "x": getattr(planes, "x", None)}
+    for fam, pp in fams.items():
+        if pp is None:
+            continue
+        ssaf = np.asarray(pp.ssaf)
+        ids, idx = [], []
+        for p, c in enumerate(np.asarray(getattr(pp, fam + "p"))):
+            if fam == "z":
+                cand = np.flatnonzero(iz == c)
+                hit = ssaf[ix[cand], p, iy[cand]] != 0
+                n = cand[hit]
+                ii = (ix[n], np.full(n.size, p), iy[n])
+            elif fam == "y":
+                z0, W = int(getattr(pp, "z0", 0)), ssaf.shape[2]
+                cand = np.flatnonzero((iy == c) & (iz >= z0) & (iz < z0 + W))
+                hit = ssaf[ix[cand], p, iz[cand] - z0] != 0
+                n = cand[hit]
+                ii = (ix[n], np.full(n.size, p), iz[n] - z0)
+            else:
+                cand = np.flatnonzero(ix == c)
+                hit = ssaf[p, iy[cand], iz[cand]] != 0
+                n = cand[hit]
+                ii = (np.full(n.size, p), iy[n], iz[n])
+            ids.append(n)
+            idx.append(np.stack(ii))
+        if ids:
+            n = np.concatenate(ids)
+            seen[n] += 1
+            out[fam] = (n, np.concatenate(idx, 1))
+    if strays is not None:
+        n = np.asarray(planes.stray_idx, np.int64)
+        slot = np.asarray(strays.node_slot, np.int64)
+        seen[n] += 1
+        out["s"] = (n, np.stack([slot // strays.TS, slot % strays.TS]))
+    if not (seen == 1).all():
+        raise ValueError("the plane/stray partition does not cover every "
+                         "lossy node exactly once")
+    return out
+
+
+def _gather(arr, fam, idx):
+    """(n, MMb) states of one family at `idx`, the MZ padding cropped."""
+    a = np.asarray(arr)
+    if fam == "s":
+        return a[idx[0], :MMb, idx[1]]
+    return a[idx[0], idx[1], :MMb, idx[2]]
+
+
+def state_from_planes(vh, gh, planes, strays, data):
+    """JAX pair/TB branch states {"z", "y", "x", "s": array} -> the port's
+    (vh, gh), each (MMb, Nbl) numpy of the state dtype.
+
+    planes: the JAX `BoundaryPlanes` (EngineData.planes); strays: its
+    `BoundaryStrays` or None; data: the port's `EngineData`."""
+    index = _family_index(planes, strays, data)
+    res = []
+    for st in (vh, gh):
+        dt = np.asarray(next(iter(st.values()))).dtype if st else data.dtype
+        x = np.zeros((MMb, data.Nbl), dt)
+        for fam, (n, idx) in index.items():
+            x[:, n] = _gather(st[fam], fam, idx).T
+        res.append(x)
+    return tuple(res)
+
+
+def state_to_planes(vh, gh, planes, strays, data):
+    """The inverse of `state_from_planes`: per-node (MMb, Nbl) states -> the
+    JAX family dicts, zeros in every padding slot."""
+    index = _family_index(planes, strays, data)
+    shapes = {}
+    for fam in ("z", "y", "x"):
+        pp = getattr(planes, fam, None)
+        if pp is not None:
+            shapes[fam] = pp.state_shape(np.asarray(pp.ssaf).shape[0])
+    if strays is not None:
+        shapes["s"] = strays.state_shape()
+    res = []
+    for x in (vh, gh):
+        x = np.asarray(x)
+        d = {}
+        for fam, shape in shapes.items():
+            a = np.zeros(shape, x.dtype)
+            if fam in index:
+                n, idx = index[fam]
+                if fam == "s":
+                    a[idx[0], :MMb, idx[1]] = x[:, n].T
+                else:
+                    a[idx[0], idx[1], :MMb, idx[2]] = x[:, n].T
+            d[fam] = a
+        res.append(d)
+    return tuple(res)

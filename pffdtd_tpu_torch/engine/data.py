@@ -58,6 +58,95 @@ def mirror_index(ixyz, grid: GridSpec) -> np.ndarray:
     return (ix * Ny + iy) * Nz + iz
 
 
+@dataclass
+class TileLists:
+    """Per-tile CSR lists of the lossy nodes for K3, the TB-step sweep.
+
+    The interior is cut into owned boxes of `box` = (Bx, By, Bz) points,
+    tile (tx, ty, tz) with id (tx*nty + ty)*ntz + tz.  A tile loads the
+    region R = its owned box grown by TB on every axis, clamped to the
+    interior, and computes step s of the sweep on the owned box grown by
+    TB-1-s.  Tile t's entries ptr[t]:ptr[t+1] are the lossy nodes within
+    TB-1 of its owned box (the reach of step 0), sorted by node id:
+    - node: index into the engine's node arrays (bnl_ixyz, ssaf, mat, vh);
+    - off:  the node's offset in the tile's R layout, z fastest;
+    - ring: its Chebyshev distance outside the owned box, so it takes part
+      in steps s <= TB-1-ring, and ring 0 marks the owner (`owned`).
+    This replaces the TPU kernels' plane/stray partitions
+    (pallas_boundary.py `partition_boundary_planes` / `_strays`): every
+    lossy node goes through one list, whatever its geometry."""
+
+    TB: int
+    box: tuple
+    ntiles: tuple
+    ptr: np.ndarray     # (ntx*nty*ntz + 1,) int32
+    node: np.ndarray    # (E,) int32
+    off: np.ndarray     # (E,) int32
+    ring: np.ndarray    # (E,) int32
+
+    @property
+    def owned(self) -> np.ndarray:
+        return self.ring == 0
+
+    @property
+    def max_per_tile(self) -> int:
+        return int(np.diff(self.ptr).max()) if self.ptr.size > 1 else 0
+
+
+def tile_bounds(t, B, N, grow):
+    """[lo, hi) of tile t's owned box (size B along an axis of N points)
+    grown by `grow`, clamped to the interior 1..N-2; works on arrays."""
+    o0 = 1 + np.asarray(t) * B
+    o1 = np.minimum(o0 + B, N - 1)
+    return np.maximum(o0 - grow, 1), np.minimum(o1 + grow, N - 1)
+
+
+def build_tile_lists(bnl_ixyz, grid: GridSpec, box, TB: int) -> TileLists:
+    """The CSR lists of `TileLists` for the nodes at flat indices bnl_ixyz
+    (all interior), tiles of `box` points and TB steps per sweep."""
+    if not 2 <= TB <= 8:
+        raise ValueError(f"TB={TB}: 2..8 steps per sweep")
+    N = np.array(grid.shape, np.int64)
+    B = np.array(box, np.int64)
+    nt = -(-(N - 2) // B)
+    bnl = np.asarray(bnl_ixyz, np.int64)
+    c = np.stack([bnl // (N[1] * N[2]), (bnl // N[2]) % N[1], bnl % N[2]])
+    if bnl.size and ((c < 1).any() or (c > (N - 2)[:, None]).any()):
+        raise ValueError("lossy nodes must lie in the interior")
+    r = TB - 1
+    # tiles whose owned box lies within r of the node, per axis
+    t_lo = np.maximum((c - 1 - r) // B[:, None], 0)
+    t_hi = np.minimum((c - 1 + r) // B[:, None], (nt - 1)[:, None])
+    span = (t_hi - t_lo + 1).max(1) if bnl.size else np.zeros(3, np.int64)
+    tiles, nodes = [], []
+    ids = np.arange(bnl.size, dtype=np.int64)
+    for d in np.ndindex(*(int(s) for s in span)):
+        t = t_lo + np.array(d)[:, None]
+        ok = (t <= t_hi).all(0)
+        tiles.append(t[:, ok])
+        nodes.append(ids[ok])
+    t = np.concatenate(tiles, 1) if tiles else np.zeros((3, 0), np.int64)
+    node = np.concatenate(nodes) if nodes else np.zeros(0, np.int64)
+    cn = c[:, node]
+    ring = np.zeros(node.size, np.int64)
+    off = np.zeros(node.size, np.int64)
+    for a in range(3):
+        o0, o1 = tile_bounds(t[a], B[a], N[a], 0)
+        ring = np.maximum(ring, np.maximum(o0 - cn[a], cn[a] - (o1 - 1)))
+        r0, r1 = tile_bounds(t[a], B[a], N[a], TB)
+        off = off * (r1 - r0) + (cn[a] - r0)
+    assert (ring >= 0).all() and (ring <= r).all()
+    tid = (t[0] * nt[1] + t[1]) * nt[2] + t[2]
+    order = np.lexsort((node, tid))
+    ptr = np.zeros(int(nt.prod()) + 1, np.int64)
+    ptr[1:] = np.cumsum(np.bincount(tid, minlength=int(nt.prod())))
+    i32 = lambda a: np.ascontiguousarray(a, np.int32)
+    return TileLists(TB=TB, box=tuple(int(b) for b in B),
+                     ntiles=tuple(int(n) for n in nt), ptr=i32(ptr),
+                     node=i32(node[order]), off=i32(off[order]),
+                     ring=i32(ring[order]))
+
+
 def abc_layer_mask(ixyz, grid: GridSpec) -> np.ndarray:
     """True where a flat index lies on an ABC layer (Q > 0)."""
     ixyz = np.asarray(ixyz, np.int64)

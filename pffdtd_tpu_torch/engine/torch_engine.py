@@ -1,28 +1,41 @@
-"""The single-device engine: a leapfrog loop of K1, K2, sources and taps.
+"""The single-device engine: the leapfrog loop on PyTorch tensors.
 
-Counterpart of `JaxEngine` (pffdtd_tpu/engine/jax_engine.py:751-1317) on its
-single-step route.  One step computes exactly the XLA `_step_core` with
-`rigid="dense"` (jax_engine.py:632-692):
+Counterpart of `JaxEngine` (pffdtd_tpu/engine/jax_engine.py:751-1317).  Two
+routes compute the same steps:
 
-1. K1 (`kernels.stencil.stencil_step`): mirror halo flips, the adjacency-
-   masked stencil with the leapfrog, and the Engquist-Majda ABC, into a third
-   buffer;
-2. K2 (`kernels.boundary.boundary_update`): the lossy ODE at the Nbl nodes,
-   reading u^{n-1} from the untouched u0;
-3. sources: unew[in_ixyz] += sig_n / infac;
-4. the receiver readout out_n = u1f[out_ixyz], u1 *after* the flips, read
-   through mirrored indices since the flips are virtual.
+- **step**, the single-step route (the JAX `backend="pallas"` route).  One
+  step computes exactly the XLA `_step_core` with `rigid="dense"`
+  (jax_engine.py:632-692):
+  1. K1 (`kernels.stencil.stencil_step`): mirror halo flips, the adjacency-
+     masked stencil with the leapfrog, and the Engquist-Majda ABC, into a
+     third buffer;
+  2. K2 (`kernels.boundary.boundary_update`): the lossy ODE at the Nbl
+     nodes, reading u^{n-1} from the untouched u0;
+  3. sources: unew[in_ixyz] += sig_n / infac;
+  4. the receiver readout out_n = u1f[out_ixyz], u1 *after* the flips, read
+     through mirrored indices since the flips are virtual.
+  The buffers rotate (u0, u1, u2) -> (u1, u2, u0) after each step.
+- **tb**, the temporally-blocked route (the JAX `pallas_pair` / `pallas_tb`
+  routes, jax_engine.py:440-549): K3 (`kernels.tb.tb_sweep`) advances TB
+  steps per sweep, each exactly the step above.  `pair` is this route with
+  TB = 2.  A sweep from (u^{n-1}, u^n) yields receiver rows n .. n+TB-1:
+  row n is read from u^n before the launch, rows n+1 .. n+TB-2 are the
+  kernel's in-kernel taps, row n+TB-1 is read from the sweep's first output
+  (the JAX scheme, jax_engine.py:530-541).  No output may alias an input,
+  so the fields rotate among four buffers and the branch states
+  double-buffer.
 
-`_step_core` applies the lossy ODE before the ABC; here the ABC comes first,
-inside K1.  The two orders agree whenever no lossy node lies on an ABC layer,
+`_step_core` applies the lossy ODE before the ABC; K1 and K3 apply the ABC
+first.  The two orders agree whenever no lossy node lies on an ABC layer,
 which holds for every scene built with the grid offset of 3.5 h; the engine
-checks it and refuses a scene where it does not hold.
+checks it for every route and refuses a scene where it does not hold.
 
-The buffers rotate (u0, u1, u2) -> (u1, u2, u0) after each step.  Receiver
-samples go into a preallocated (Nt, Nr) device tensor, so the time loop has
-no host sync.  On CUDA tensors K1 and K2 launch the hand-written kernels; on
-the CPU they run their plain PyTorch versions.  `use_kernels=False` calls the
-plain versions on any device (the card's comparison path).
+Receiver samples go into a preallocated (Nt, Nr) device tensor, so the time
+loop has no host sync.  On CUDA tensors the wrappers launch the hand-written
+kernels; on the CPU they run their plain PyTorch versions.
+`use_kernels=False` calls the plain versions on any device (the card's
+comparison path).  The engine runs on the card unless `device="cpu"` is
+passed, and never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -38,16 +51,38 @@ from pffdtd_tpu_torch.io.simdata import MMb, read_sim_folder, write_outputs
 from pffdtd_tpu_torch.kernels.boundary import boundary_update, \
     boundary_update_plain
 from pffdtd_tpu_torch.kernels.stencil import stencil_step, stencil_step_plain
+from pffdtd_tpu_torch.kernels.tb import TBScene, tb_sweep, tb_sweep_plain
 
 _TORCH_DTYPE = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.float64): torch.float64}
+BACKENDS = ("auto", "step", "pair", "tb")
+
+
+def pick_route(backend: str, tb: int = 3):
+    """(route, TB): route "step" (TB None) or "tb" (TB steps per sweep).
+
+    "auto" takes the single-step route.  The JAX engine's rule sends fp32
+    scenes with <= 64 sources to its temporally-blocked kernels
+    (jax_engine.py:776-980), but on the H100 K3 is the slower route on the
+    headline scene: about 2.6 ms per step at TB = 3 and 2.2 at TB = 2,
+    against 1.2 for K1 + K2 (NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py;
+    PERF.md).  The rule is static: nothing is timed at run time."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
+    if backend in ("auto", "step"):
+        return "step", None
+    TB = 2 if backend == "pair" else int(tb)
+    if not 2 <= TB <= 8:
+        raise ValueError(f"tb={TB}: 2..8 steps per sweep")
+    return "tb", TB
 
 
 class TorchEngine:
     """Single-device FDTD engine on PyTorch tensors."""
 
     def __init__(self, folder=None, *, consts=None, vox=None, comms=None,
-                 mats=None, dtype=np.float32, device="cpu",
+                 mats=None, dtype=np.float32, device="cuda",
+                 backend: str = "auto", tb: int = 3,
                  use_kernels: bool = True):
         if folder is not None:
             sim = read_sim_folder(folder)
@@ -55,14 +90,19 @@ class TorchEngine:
                 sim.mats
         self._folder = folder
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device cuda: torch.cuda.is_available() is "
+                               "False; pass device='cpu' to run the plain "
+                               "PyTorch versions on the CPU")
         self.data = d = EngineData(consts, vox, comms, mats, dtype=dtype)
         self.dtype = _TORCH_DTYPE[d.dtype]
         self.Nt = d.Nt
         self.use_kernels = use_kernels
+        self.backend, self.TB = pick_route(backend, tb)
         if d.Nbl and abc_layer_mask(d.bnl_ixyz, d.grid).any():
             raise ValueError("a lossy boundary node lies on an ABC layer: "
-                             "K1 applies the ABC before the lossy update, "
-                             "which is exact only off those layers")
+                             "the kernels apply the ABC before the lossy "
+                             "update, which is exact only off those layers")
         dev = self.device
 
         def up(a):
@@ -76,15 +116,23 @@ class TorchEngine:
         self.beta = up(d.beta)
         self.in_ixyz = up(d.in_ixyz)
         self.out_ixyz_f = up(mirror_index(d.out_ixyz, d.grid))
+        self.tb_scene = None
+        if self.TB is not None:
+            self.tb_scene = TBScene.make(
+                d, self.TB, adj=self.adj, bnl=self.bnl, ssaf=self.ssaf,
+                mat=self.mat, coef_table=self.coef_table, beta=self.beta,
+                in_ixyz=self.in_ixyz, out_ixyz_f=self.out_ixyz_f)
 
     # -------------------------------------------------------------- state
+    def _zeros(self, *shape):
+        return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
     def init_state(self):
         """Zero state (u0, u1, u2, vh, gh): u0 = u^{n-1}, u1 = u^n, u2 the
         output scratch; branch states (MMb, Nbl)."""
-        g, d = self.data.grid, self.data
-        z = lambda *s: torch.zeros(s, dtype=self.dtype, device=self.device)
-        return [z(*g.shape), z(*g.shape), z(*g.shape), z(MMb, d.Nbl),
-                z(MMb, d.Nbl)]
+        g, nbl = self.data.grid.shape, self.data.Nbl
+        return [self._zeros(*g), self._zeros(*g), self._zeros(*g),
+                self._zeros(MMb, nbl), self._zeros(MMb, nbl)]
 
     def step(self, state, sig_n, out_row=None):
         """Advance `state` by one step in place (buffers rotate).
@@ -105,6 +153,25 @@ class TorchEngine:
         state[0], state[1], state[2] = u1, u2, u0
         return state
 
+    def sweep(self, state, spare, sigs, out, n):
+        """Advance `state` by TB steps from step n with one K3 sweep.
+
+        spare: [a fourth grid, vh, gh buffers] that the sweep writes and
+        swaps with the state's; sigs: (nt, Ns); out: (nt, Nr) receiver rows,
+        of which rows n .. n+TB-1 are written."""
+        TB = self.TB
+        u0, u1, u2, vh, gh = state
+        u3, vh2, gh2 = spare
+        k3 = tb_sweep if self.use_kernels else tb_sweep_plain
+        torch.index_select(u1.view(-1), 0, self.out_ixyz_f, out=out[n])
+        k3(self.tb_scene, u0, u1, u2, u3, vh, gh, vh2, gh2,
+           sigs[n:n + TB], out[n + 1:n + TB - 1] if TB > 2 else None)
+        torch.index_select(u2.view(-1), 0, self.out_ixyz_f,
+                           out=out[n + TB - 1])
+        state[:] = [u2, u3, u0, vh2, gh2]
+        spare[:] = [u1, vh, gh]
+        return state
+
     # ---------------------------------------------------------------- run
     def _sync(self):
         if self.device.type == "cuda":
@@ -116,8 +183,14 @@ class TorchEngine:
         (Nr, nt) float64, scaled back by infac; the final state stays in
         `self.state`.
 
-        chunk: with verbose, print a progress line every `chunk` steps (each
-        line waits for the device; without chunk the loop never does)."""
+        The TB route runs nt // TB sweeps, then the nt % TB remaining steps
+        with K1 + K2.  (The JAX engine instead zero-pads the signal to whole
+        sweeps and trims the output, jax_engine.py:1044-1056: u_out is the
+        same either way, and here the final state is exactly step nt.)
+
+        chunk: with verbose, print a progress line each time the step count
+        passes a multiple of `chunk` (each line waits for the device;
+        without chunk the loop never does)."""
         d = self.data
         g = d.grid
         npts = g.Nx * g.Ny * g.Nz
@@ -128,17 +201,28 @@ class TorchEngine:
         out = torch.zeros((nt, d.out_ixyz.size), dtype=self.dtype,
                           device=self.device)
         state = self.init_state()
+        TB = self.TB or 1
+        spare = None
+        if TB > 1:   # the sweep's fourth grid and second vh, gh
+            spare = [self._zeros(*g.shape), self._zeros(MMb, d.Nbl),
+                     self._zeros(MMb, d.Nbl)]
         self._sync()
         t0 = tb = time.perf_counter()
-        for n in range(nt):
-            self.step(state, sigs[n], out[n])
-            if verbose and chunk and (n + 1) % chunk == 0 and n + 1 < nt:
+        n = 0
+        while n < nt:
+            k = TB if n + TB <= nt else 1
+            if k > 1:
+                self.sweep(state, spare, sigs, out, n)
+            else:
+                self.step(state, sigs[n], out[n])
+            n += k
+            if verbose and chunk and n // chunk > (n - k) // chunk \
+                    and n < nt:
                 self._sync()
                 t = time.perf_counter()
-                print(f"--ENGINE(torch): {n + 1}/{nt} "
-                      f"[{100 * (n + 1) / nt:.0f}%] "
+                print(f"--ENGINE(torch): {n}/{nt} [{100 * n / nt:.0f}%] "
                       f"{npts * chunk / (t - tb) / 1e6:.1f} MVPS inst, "
-                      f"{npts * (n + 1) / (t - t0) / 1e6:.1f} MVPS avg",
+                      f"{npts * n / (t - t0) / 1e6:.1f} MVPS avg",
                       flush=True)
                 tb = t
         self._sync()
@@ -147,8 +231,10 @@ class TorchEngine:
         self.u_out = np.float64(out.T.cpu().numpy()) * d.infac
         self.mvps = npts * nt / self.elapsed / 1e6
         if verbose:
+            route = self.backend if self.TB is None else \
+                f"{self.backend} TB={self.TB}"
             print(f"--ENGINE(torch): {nt} steps over {npts / 1e6:.2f} Mvox "
-                  f"on {self.device} in {self.elapsed:.3f}s -> "
+                  f"on {self.device} ({route}) in {self.elapsed:.3f}s -> "
                   f"{self.mvps:.1f} MVPS")
         return self.u_out
 

@@ -4,10 +4,9 @@ Counterpart of the dataclasses in `pffdtd_tpu/io/h5.py` and of `SimData`
 in `pffdtd_tpu/scene_setup.py`, with the same fields.  The engine reads
 them by attribute, so the JAX package's own objects work too.
 
-HDF5 is touched only by `read_sim_folder` and `write_outputs`, which import
-the JAX package's `pffdtd_tpu.io.h5` (and with it `h5py`) when called: the
-files they read and write are byte-compatible with the reference because
-they come from the same reader and writer.
+HDF5 is touched only by `read_sim_folder` and `write_outputs`, through the
+port's own `io/h5.py` (a copy of the reference's reader and writer, so the
+files stay byte-compatible), which imports `h5py` only when called.
 """
 
 from __future__ import annotations
@@ -100,14 +99,14 @@ class SimData:
 
 def read_sim_folder(folder) -> SimData:
     """Read the four engine inputs of a sim folder (needs h5py)."""
-    from pffdtd_tpu.io.h5 import read_comms, read_consts, read_mats, read_vox
+    from pffdtd_tpu_torch.io import h5
 
-    return SimData(consts=read_consts(folder), vox=read_vox(folder),
-                   comms=read_comms(folder), mats=read_mats(folder))
+    return SimData(consts=h5.read_consts(folder), vox=h5.read_vox(folder),
+                   comms=h5.read_comms(folder), mats=h5.read_mats(folder))
 
 
 def write_outputs(folder, u_out, out_reorder=None):
     """Write sim_outs.h5 with u_out in receiver order (needs h5py)."""
-    from pffdtd_tpu.io.h5 import write_outputs as _write
+    from pffdtd_tpu_torch.io import h5
 
-    _write(folder, u_out, out_reorder)
+    h5.write_outputs(folder, u_out, out_reorder)

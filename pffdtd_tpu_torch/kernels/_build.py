@@ -40,6 +40,18 @@ SIGNATURES = {
     # stream
     "pf_boundary_update": [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                            _ll, _d, _d, _vp],
+    # dtype, nn, tb, u0, u1, adj, out0, out1, Nx, Ny, Nz, folded, Bx, By,
+    # Bz, a2, sl2, lQ1, lQ2, lQ3, l, lo2, tl_ptr, tl_node, tl_off, tl_ring,
+    # ssaf, mat, coef, beta, vh_in, gh_in, vh_out, gh_out, nbl, src, sig,
+    # ns, rcv, taps, nr, stream
+    "pf_tb_sweep": [_i, _i, _i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
+                    _i, _i, _i, _d, _d, _d, _d, _d, _d, _d, _vp, _vp, _vp,
+                    _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _vp,
+                    _vp, _i, _vp, _vp, _i, _vp],
+    # mode (0 read, 1 write, 2 copy), x, y, n, value, partial, out, stream
+    "pf_stream": [_i, _vp, _vp, _ll, _d, _vp, _vp, _vp],
+    # () -> blocks each pf_stream mode launches
+    "pf_stream_blocks": [],
 }
 
 

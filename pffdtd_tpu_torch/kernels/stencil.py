@@ -21,8 +21,8 @@ import itertools
 import numpy as np
 import torch
 
-from pffdtd_tpu.voxelizer.vox import CART_VECTORS, FCC_VECTORS
 from pffdtd_tpu_torch.kernels import _build
+from pffdtd_tpu_torch.voxelizer.vox import CART_VECTORS, FCC_VECTORS
 
 
 def _as_dtype(x: float, dt: torch.dtype) -> float:

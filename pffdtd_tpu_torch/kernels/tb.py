@@ -1,0 +1,229 @@
+"""K3, the temporally-blocked sweep, and its plain PyTorch version.
+
+`tb_sweep` launches the CUDA kernel of `csrc/tb.cu` for tensors on the card
+and runs `tb_sweep_plain` for tensors on the CPU.  Both advance
+(u0, u1) = (u^{n-1}, u^n) by TB leapfrog steps into (out0, out1) =
+(u^{n+TB-1}, u^{n+TB}) and the branch states (vh_in, gh_in) into
+(vh_out, gh_out).  Each step is the engine's single step: K1 (virtual
+flips, masked stencil, leapfrog, ABC), K2 (the lossy ODE), then the
+sources.  The receiver samples of the intermediate fields u^{n+1} ..
+u^{n+TB-2} go into `taps`, a (TB-2, Nr) view (None for TB = 2).
+
+It replaces pffdtd_tpu/engine/pallas_pair.py `build_fused_pair` (TB = 2)
+and pallas_tb.py `build_fused_tb` (TB = 2..8), single-device mode.
+
+Race rule: no output aliases an input.  A tile of the kernel reads its
+neighbours' start-of-sweep fields and branch states while their owners
+write end-of-sweep values, so the caller rotates four field buffers and
+double-buffers the branch states; the wrapper refuses aliased buffers.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from pffdtd_tpu_torch.engine.data import (GridSpec, TileLists,
+                                          build_tile_lists, mirror_index)
+from pffdtd_tpu_torch.io.simdata import MMb
+from pffdtd_tpu_torch.kernels import _build
+from pffdtd_tpu_torch.kernels.boundary import boundary_update_plain
+from pffdtd_tpu_torch.kernels.stencil import stencil_step_plain
+
+THREADS = 256          # kThreads in csrc/tb.cu
+PER_THREAD = 4         # kMaxPer in csrc/tb.cu: lossy-list entries a thread
+MAX_NODES = THREADS * PER_THREAD   # holds in registers; list cap per tile
+SMEM_LIMIT = 232448    # shared memory one block may use on the H100
+# owned tile boxes (x, y, z), tried in order until the tile fits the shared
+# memory and its lossy list fits MAX_NODES
+TILES = ((8, 8, 32), (8, 8, 16), (4, 8, 16), (4, 4, 16), (4, 4, 8),
+         (2, 4, 8), (2, 2, 8), (2, 2, 4), (1, 2, 4), (1, 1, 4), (1, 1, 2),
+         (1, 1, 1))
+
+
+def smem_bytes(box, TB: int, itemsize: int, adj_itemsize: int) -> int:
+    """Shared memory of one K3 block: two field levels and the adjacency
+    over the owned box grown by TB."""
+    n = int(np.prod([b + 2 * TB for b in box]))
+    return n * (2 * itemsize + adj_itemsize)
+
+
+def plan_tiles(grid: GridSpec, TB: int, itemsize: int,
+               bnl_ixyz) -> TileLists:
+    """The first box of TILES that fits, with its lossy lists."""
+    if not 2 <= TB <= 8:
+        raise ValueError(f"TB={TB}: 2..8 steps per sweep")
+    adj_itemsize = 2 if grid.fcc_flag else 1
+    for box in TILES:
+        if smem_bytes(box, TB, itemsize, adj_itemsize) > SMEM_LIMIT:
+            continue
+        tl = build_tile_lists(bnl_ixyz, grid, box, TB)
+        if tl.max_per_tile <= MAX_NODES:
+            return tl
+    raise ValueError(f"no tile box fits TB={TB}: a tile holds more than "
+                     f"{MAX_NODES} lossy nodes")
+
+
+def _xyz(ixyz, grid: GridSpec) -> np.ndarray:
+    """(n, 3) int32 coordinates of flat indices."""
+    ixyz = np.asarray(ixyz, np.int64)
+    Nx, Ny, Nz = grid.shape
+    return np.ascontiguousarray(np.stack(
+        [ixyz // (Ny * Nz), (ixyz // Nz) % Ny, ixyz % Nz], 1), np.int32)
+
+
+@dataclass
+class TBScene:
+    """The static tensors of a sweep, on one device.
+
+    The plain version reads the engine's arrays (adj .. out_ixyz_f); the
+    kernel reads the tile lists and the sources' and mirrored receivers'
+    (n, 3) coordinates instead of flat indices."""
+
+    grid: GridSpec
+    sc: object
+    TB: int
+    lists: TileLists
+    adj: torch.Tensor
+    bnl: torch.Tensor
+    ssaf: torch.Tensor
+    mat: torch.Tensor
+    coef_table: torch.Tensor
+    beta: torch.Tensor
+    in_ixyz: torch.Tensor
+    out_ixyz_f: torch.Tensor
+    tl_ptr: torch.Tensor
+    tl_node: torch.Tensor
+    tl_off: torch.Tensor
+    tl_ring: torch.Tensor
+    src_xyz: torch.Tensor
+    rcv_xyz: torch.Tensor
+
+    @classmethod
+    def make(cls, data, TB: int, *, adj, bnl, ssaf, mat, coef_table, beta,
+             in_ixyz, out_ixyz_f, lists: TileLists | None = None):
+        """From an `EngineData` and the engine's device tensors; plans the
+        tiles unless `lists` is given."""
+        g = data.grid
+        if lists is None:
+            lists = plan_tiles(g, TB, data.dtype.itemsize, data.bnl_ixyz)
+        if lists.TB != TB:
+            raise ValueError(f"tile lists for TB={lists.TB}, want {TB}")
+        dev = adj.device
+
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        return cls(grid=g, sc=data.sc, TB=TB, lists=lists, adj=adj, bnl=bnl,
+                   ssaf=ssaf, mat=mat, coef_table=coef_table, beta=beta,
+                   in_ixyz=in_ixyz, out_ixyz_f=out_ixyz_f,
+                   tl_ptr=up(lists.ptr), tl_node=up(lists.node),
+                   tl_off=up(lists.off), tl_ring=up(lists.ring),
+                   src_xyz=up(_xyz(data.in_ixyz, g)),
+                   rcv_xyz=up(_xyz(mirror_index(data.out_ixyz, g), g)))
+
+
+def _check(st: TBScene, u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out,
+           sig, taps):
+    TB = st.TB
+    if not 2 <= TB <= 8:
+        raise ValueError(f"TB={TB}: 2..8 steps per sweep")
+    shape = tuple(st.grid.shape)
+    dt = u1.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"u1: dtype {dt}, want float32/float64")
+    nbl, ns, nr = st.bnl.numel(), st.in_ixyz.numel(), st.out_ixyz_f.numel()
+    want = {"u0": (u0, shape), "u1": (u1, shape), "out0": (out0, shape),
+            "out1": (out1, shape), "vh_in": (vh_in, (MMb, nbl)),
+            "gh_in": (gh_in, (MMb, nbl)), "vh_out": (vh_out, (MMb, nbl)),
+            "gh_out": (gh_out, (MMb, nbl)), "sig": (sig, (TB, ns)),
+            "ssaf": (st.ssaf, (nbl,)), "coef_table": (st.coef_table, None),
+            "beta": (st.beta, None)}
+    if TB > 2:
+        want["taps"] = (taps, (TB - 2, nr))
+    elif taps is not None:
+        raise ValueError("taps: a TB = 2 sweep has no intermediate rows")
+    for name, (t, s) in want.items():
+        if t.dtype != dt:
+            raise TypeError(f"{name}: dtype {t.dtype}, want {dt}")
+        if s is not None and tuple(t.shape) != s:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, want {s}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous")
+    adt = torch.uint16 if st.grid.fcc_flag else torch.uint8
+    if st.adj.dtype != adt or tuple(st.adj.shape) != shape:
+        raise ValueError(f"adj: want a {shape} {adt} grid")
+    tensors = [u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out, sig,
+               st.adj, st.bnl, st.mat, st.in_ixyz, st.out_ixyz_f, st.tl_ptr]
+    if len({t.device for t in tensors + ([taps] if TB > 2 else [])}) != 1:
+        raise ValueError("every tensor of a sweep must lie on one device")
+    if len({t.data_ptr() for t in (u0, u1, out0, out1)}) != 4:
+        raise ValueError("u0, u1, out0, out1 must be four distinct buffers")
+    if nbl and len({t.data_ptr() for t in (vh_in, gh_in, vh_out,
+                                            gh_out)}) != 4:
+        raise ValueError("vh_in, gh_in, vh_out, gh_out must be distinct")
+    if st.tl_ptr.numel() != int(np.prod(st.lists.ntiles)) + 1:
+        raise ValueError("tile lists do not match the scene")
+
+
+def tb_sweep(st: TBScene, u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out,
+             sig, taps=None):
+    """One sweep of st.TB steps; returns (out0, out1).
+
+    sig: (TB, Ns) source samples already divided by infac; taps: the
+    (TB-2, Nr) rows for u^{n+1} .. u^{n+TB-2}, or None when TB = 2."""
+    _check(st, u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out, sig, taps)
+    if u1.device.type == "cpu":
+        return tb_sweep_plain(st, u0, u1, out0, out1, vh_in, gh_in, vh_out,
+                              gh_out, sig, taps)
+    if u1.device.type != "cuda":
+        raise ValueError(f"device {u1.device}: cpu or cuda only")
+    lib = _build.library()
+    g, sc, tl = st.grid, st.sc, st.lists
+    Nx, Ny, Nz = g.shape
+    rc = lib.pf_tb_sweep(
+        0 if u1.dtype == torch.float32 else 1, 12 if g.fcc_flag else 6,
+        st.TB, u0.data_ptr(), u1.data_ptr(), st.adj.data_ptr(),
+        out0.data_ptr(), out1.data_ptr(), Nx, Ny, Nz, int(g.folded),
+        *tl.box, sc.a2, sc.sl2, sc.l * 1, sc.l * 2, sc.l * 3, sc.l, sc.lo2,
+        st.tl_ptr.data_ptr(), st.tl_node.data_ptr(), st.tl_off.data_ptr(),
+        st.tl_ring.data_ptr(), st.ssaf.data_ptr(), st.mat.data_ptr(),
+        st.coef_table.data_ptr(), st.beta.data_ptr(), vh_in.data_ptr(),
+        gh_in.data_ptr(), vh_out.data_ptr(), gh_out.data_ptr(),
+        st.bnl.numel(), st.src_xyz.data_ptr(), sig.data_ptr(),
+        st.in_ixyz.numel(), st.rcv_xyz.data_ptr(),
+        taps.data_ptr() if taps is not None else None,
+        st.out_ixyz_f.numel(),
+        torch.cuda.current_stream(u1.device).cuda_stream)
+    _build.check(rc, "tb_sweep")
+    tb_sweep.launches += 1
+    return out0, out1
+
+
+tb_sweep.launches = 0
+
+
+def tb_sweep_plain(st: TBScene, u0, u1, out0, out1, vh_in, gh_in, vh_out,
+                   gh_out, sig, taps=None):
+    """TB repeats of the plain single step (same signature and result).
+
+    The last two steps write out0 and out1; earlier ones a scratch grid,
+    so the buffers cycle (out1, out0, scratch) counted from the last step
+    and no step overwrites a field it reads."""
+    TB = st.TB
+    vh_out.copy_(vh_in)
+    gh_out.copy_(gh_in)
+    bufs = (out1, out0, torch.empty_like(u1) if TB > 2 else None)
+    prev, cur = u0, u1
+    for s in range(TB):
+        dst = bufs[(TB - 1 - s) % 3]
+        stencil_step_plain(prev, cur, st.adj, dst, st.grid, st.sc)
+        boundary_update_plain(dst, prev, st.bnl, st.ssaf, st.mat,
+                              st.coef_table, st.beta, vh_out, gh_out, st.sc)
+        dst.view(-1).index_add_(0, st.in_ixyz, sig[s])
+        if s < TB - 2:
+            torch.index_select(dst.view(-1), 0, st.out_ixyz_f, out=taps[s])
+        prev, cur = cur, dst
+    return out0, out1

@@ -6,11 +6,11 @@ Counterparts, held array-for-array equal to the originals:
 - `rotate_sim`, `fold_fcc_sim`, `sort_sim`  pffdtd_tpu/prep.py
 
 The originals import `h5py` at module level (through `pffdtd_tpu.io.h5`),
-which the card's machine may lack; the grid, constants and source/receiver
-helpers they build on (`CartGrid`, `SimConsts`, `SimComms`) are numpy-only
-and are reused here.  `rotate_sim` takes an explicit `tr` or the reference's
-"descending" rule only: the JAX package's "auto" orientation scores the
-TPU kernels' tiling and has no meaning on the card.
+which the card's machine may lack.  The grid, constants and source/receiver
+helpers they build on are the port's own copies (`voxelizer.grid.CartGrid`,
+`consts.SimConsts`, `comms.SimComms`).  `rotate_sim` takes an explicit `tr`
+or the reference's "descending" rule only: the JAX package's "auto"
+orientation scores the TPU kernels' tiling and has no meaning on the card.
 """
 
 from __future__ import annotations
@@ -19,13 +19,13 @@ from dataclasses import replace
 
 import numpy as np
 
-from pffdtd_tpu.comms import SimComms
-from pffdtd_tpu.consts import SimConsts
-from pffdtd_tpu.utils import ind2sub3d
-from pffdtd_tpu.voxelizer.grid import CartGrid
-from pffdtd_tpu.voxelizer.vox import CART_VECTORS, FCC_VECTORS
-from pffdtd_tpu_torch.io.simdata import (MMb, CommsData, MatsData,
-                                         SimConstsData, SimData, VoxData)
+from pffdtd_tpu_torch.comms import SimComms
+from pffdtd_tpu_torch.consts import SimConsts
+from pffdtd_tpu_torch.io.simdata import (MMb, MatsData, SimConstsData,
+                                         SimData, VoxData)
+from pffdtd_tpu_torch.utils import ind2sub3d
+from pffdtd_tpu_torch.voxelizer.grid import CartGrid
+from pffdtd_tpu_torch.voxelizer.vox import CART_VECTORS, FCC_VECTORS
 
 DEMO_DEF = np.array([[2.0, 5.0, 30.0],
                      [1.0, 10.0, 300.0],
@@ -42,15 +42,6 @@ def mats_from_DEF_list(DEF_list) -> MatsData:
             raise ValueError(f"material {i}: DEF must be (<= {MMb}, 3)")
         DEF[i, : d.shape[0]] = d
     return MatsData(Nmat=Nmat, Mb=Mb, DEF=DEF)
-
-
-def _comms_data(sc: SimComms) -> CommsData:
-    """`SimComms.to_comms_data` without its h5py import."""
-    out_ixyz = sc.out_ixyz.reshape(-1)
-    return CommsData(in_ixyz=sc.in_ixyz, out_ixyz=out_ixyz,
-                     out_alpha=sc.out_alpha,
-                     out_reorder=np.arange(out_ixyz.size),
-                     in_sigs=sc.in_sigs, diff=sc._diff)
 
 
 def synthetic_box_sim(Lx=8.0, Ly=6.0, Lz=5.0, h=0.02, duration=None, Nt=None,
@@ -155,7 +146,7 @@ def synthetic_box_sim(Lx=8.0, Ly=6.0, Lz=5.0, h=0.02, duration=None, Nt=None,
 
     consts = SimConstsData(c=sc.c, h=sc.h, Ts=sc.Ts, SR=sc.SR, l=sc.l,
                            l2=sc.l2, fcc_flag=sc.fcc_flag, Tc=Tc, rh=rh)
-    return SimData(consts=consts, vox=vox, comms=_comms_data(comms),
+    return SimData(consts=consts, vox=vox, comms=comms.to_comms_data(),
                    mats=mats)
 
 

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1 and K2 vs their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K4 vs their plain PyTorch versions, on the card.
 
 Marked `cuda`; each test skips, inside the `cuda` fixture, where
 torch.cuda.is_available() is False (a CUDA kernel has no CPU mode; its plain
@@ -8,7 +8,10 @@ version is covered by the other test_torch_* files).  Run on the card with
 
 Bounds: one fp32 call <= 1e-6 relative (the kernels are built without FMA
 contraction, so only summation order may differ), fp64 <= 1e-12, and whole
-runs on the kernel path vs the plain path <= 1e-12 in fp64.
+runs on the kernel path vs the plain path <= 1e-12 in fp64.  K3 repeats K1
+and K2's arithmetic per step, so one sweep is held to the same bounds; K4's
+copy and fill are exact and its float64 sum agrees with PyTorch's to 1e-12
+of the sum of |x|.
 """
 
 import numpy as np
@@ -20,6 +23,8 @@ from pffdtd_tpu_torch.io.simdata import MMb
 from pffdtd_tpu_torch.kernels.boundary import (boundary_update,
                                                boundary_update_plain)
 from pffdtd_tpu_torch.kernels.stencil import stencil_step, stencil_step_plain
+from pffdtd_tpu_torch.kernels.stream import stream, stream_plain
+from pffdtd_tpu_torch.kernels.tb import tb_sweep, tb_sweep_plain
 from pffdtd_tpu_torch.scene import fold_fcc_sim, sort_sim, synthetic_box_sim
 
 pytestmark = pytest.mark.cuda
@@ -105,3 +110,62 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                         eng.beta, torch.zeros((MMb, d.Nbl), device=cuda,
                                               dtype=torch.float64),
                         torch.zeros((MMb, d.Nbl), device=cuda), d.sc)
+
+
+@pytest.mark.parametrize("TB", [2, 3, 5])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("name", list(CASES))
+def test_tb_sweep_matches_plain(cuda, name, dtype, TB):
+    eng = _engine(name, dtype, backend="tb", tb=TB)
+    st, d = eng.tb_scene, eng.data
+    rng = np.random.default_rng(1)
+    t = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(dtype)).to(cuda)
+    u0, u1 = t(*d.grid.shape), t(*d.grid.shape)
+    vh, gh = t(MMb, d.Nbl), t(MMb, d.Nbl)
+    sig = t(TB, d.in_ixyz.size)
+    nr = d.out_ixyz.size
+    outs = []
+    for fn in (tb_sweep, tb_sweep_plain):
+        o = [torch.full_like(u0, float("nan")) for _ in range(2)]
+        s2 = [torch.full_like(vh, float("nan")) for _ in range(2)]
+        taps = torch.full((TB - 2, nr), float("nan"), dtype=u0.dtype,
+                          device=cuda) if TB > 2 else None
+        n = tb_sweep.launches
+        fn(st, u0, u1, *o, vh, gh, *s2, sig, taps)
+        torch.cuda.synchronize()
+        assert tb_sweep.launches == n + (fn is tb_sweep)
+        outs.append(o + s2 + ([taps] if TB > 2 else []))
+    inner = (slice(1, -1),) * 3
+    for i, (a, b) in enumerate(zip(*outs)):
+        if i < 2:
+            a, b = a[inner], b[inner]
+        assert torch.isfinite(a).all()
+        assert _rel(a, b) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("backend", ["pair", "tb"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_tb_route_matches_plain_path_fp64(cuda, name, backend):
+    uk = _engine(name, np.float64, backend=backend).run(nt=29,
+                                                        verbose=False)
+    up = _engine(name, np.float64, backend="step",
+                 use_kernels=False).run(nt=29, verbose=False)
+    assert np.abs(up).max() > 0
+    assert np.abs(uk - up).max() / np.abs(up).max() <= 1e-12
+
+
+@pytest.mark.parametrize("n", [1 << 20, (1 << 20) + 3])
+def test_stream_matches_plain(cuda, n):
+    x = torch.randn(n, device=cuda)
+    y, y2 = torch.empty_like(x), torch.empty_like(x)
+    n0 = stream.launches
+    s = stream("read", x)
+    assert abs(float(s) - float(stream_plain("read", x))) \
+        <= 1e-12 * float(x.abs().sum(dtype=torch.float64))
+    stream("copy", x, y)
+    assert torch.equal(y, stream_plain("copy", x, y2))
+    stream("write", y=y, value=2.5)
+    assert torch.equal(y, stream_plain("write", y=y2, value=2.5))
+    torch.cuda.synchronize()
+    assert stream.launches == n0 + 3

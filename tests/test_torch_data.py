@@ -1,9 +1,11 @@
 """The port's host side vs the JAX package's, array for array.
 
-Coefficients, scenes (synthetic box + rotate/fold/sort) and the engine's
-static arrays must be EQUAL to the originals (no tolerance: the arithmetic
-is the same numpy code).  The import-isolation test checks that the port's
-chip path runs with jax, jaxlib and h5py blocked, as on the card's machine.
+Coefficients, scenes (synthetic box + rotate/fold/sort), the engine's
+static arrays and the port's own copies of the JAX package's numpy-only
+modules (consts, comms, utils, voxelizer.grid/vox, io.h5) must be EQUAL to
+the originals (no tolerance: the arithmetic is the same numpy code).  The
+import-isolation test checks that the port's chip path runs with jax,
+jaxlib, h5py and the JAX package itself blocked, as the port must.
 """
 
 import dataclasses
@@ -16,13 +18,22 @@ import numpy as np
 import pytest
 import torch
 
+import pffdtd_tpu.comms as jcomms
+import pffdtd_tpu.consts as jconsts
+import pffdtd_tpu.io.h5 as jh5
+import pffdtd_tpu.utils as jutils
+import pffdtd_tpu.voxelizer.grid as jgrid
+import pffdtd_tpu.voxelizer.vox as jvox
 from pffdtd_tpu import demo, prep
 from pffdtd_tpu.engine import coeffs as jcoeffs
 from pffdtd_tpu.engine.jax_engine import EngineData as JaxEngineData
 from pffdtd_tpu.scene_setup import mats_from_DEF_list as jmats
+from pffdtd_tpu.scene_setup import save_sim_data
 
-from pffdtd_tpu_torch import scene
+from pffdtd_tpu_torch import comms, consts, scene, utils
 from pffdtd_tpu_torch.engine import coeffs
+from pffdtd_tpu_torch.io import h5, simdata
+from pffdtd_tpu_torch.voxelizer import grid, vox
 from pffdtd_tpu_torch.engine.data import EngineData, abc_layer_mask
 
 torch.set_num_threads(2)
@@ -131,7 +142,7 @@ import sys
 
 class _Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "h5py"):
+        if name.split(".")[0] in ("jax", "jaxlib", "h5py", "pffdtd_tpu"):
             raise ImportError("blocked on the card's machine: " + name)
         return None
 
@@ -143,18 +154,24 @@ import chip_smoke
 import pffdtd_tpu_torch.cli
 import pffdtd_tpu_torch.convert
 import pffdtd_tpu_torch.engine.torch_engine
+import pffdtd_tpu_torch.io.h5
+import pffdtd_tpu_torch.kernels.stream
+import pffdtd_tpu_torch.kernels.tb
 import pffdtd_tpu_torch.scene
 from pffdtd_tpu_torch.engine.torch_engine import TorchEngine
 from pffdtd_tpu_torch.scene import fold_fcc_sim, synthetic_box_sim
 
 sim = fold_fcc_sim(synthetic_box_sim(1.2, 1.0, 0.9, h=0.1, Nt=10, fcc=True,
                                      insig_type="hann10"))
-eng = TorchEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
-                  mats=sim.mats, device="cpu")
-u = eng.run(verbose=False)
-assert u.shape == (sim.comms.Nr, 10) and np.isfinite(u).all()
-assert float(eng.state[1].abs().max()) > 0
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "h5py")]
+for backend in ("step", "tb"):
+    eng = TorchEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
+                      mats=sim.mats, device="cpu", backend=backend)
+    u = eng.run(verbose=False)
+    assert u.shape == (sim.comms.Nr, 10) and np.isfinite(u).all()
+    assert float(eng.state[1].abs().max()) > 0
+assert eng.TB == 3
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "h5py", "pffdtd_tpu")]
 assert not bad, bad
 print("ISOLATED-OK")
 """
@@ -166,3 +183,69 @@ def test_import_isolation():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0 and "ISOLATED-OK" in r.stdout, \
         r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("kw", [dict(h=0.1), dict(h=0.05, fcc=True),
+                                dict(SR=48000.0, Tc=25.0, rh=40.0),
+                                dict(fmax=1000.0, PPW=10.5, fcc=True)])
+def test_consts_copy_equal(kw):
+    a, b = consts.SimConsts(**kw), jconsts.SimConsts(**kw)
+    for k in ("c", "h", "Ts", "SR", "l", "l2", "fcc_flag"):
+        assert getattr(a, k) == getattr(b, k), k
+    assert consts.speed_of_sound(13.0) == jconsts.speed_of_sound(13.0)
+
+
+@pytest.mark.parametrize("fcc", [False, True])
+def test_grid_utils_vox_copies_equal(fcc):
+    kw = dict(h=0.07, offset=3.5, bmin=np.array([0.1, -0.2, 0.0]),
+              bmax=np.array([1.3, 0.9, 0.7]), fcc=fcc)
+    a, b = grid.CartGrid(**kw), jgrid.CartGrid(**kw)
+    for k in ("Nx", "Ny", "Nz", "Npts", "xv", "yv", "zv", "Nxyz", "xyzmin",
+              "xyzmax", "h"):
+        np.testing.assert_array_equal(getattr(a, k), getattr(b, k),
+                                      err_msg=k)
+    ii = np.arange(0, a.Npts, 7)
+    sub = utils.ind2sub3d(ii, a.Nx, a.Ny, a.Nz)
+    for x, y in zip(sub, jutils.ind2sub3d(ii, a.Nx, a.Ny, a.Nz)):
+        np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(utils.sub2ind3d(*sub, a.Nx, a.Ny, a.Nz),
+                                  ii)
+    assert utils.iceil(2.1) == jutils.iceil(2.1) == 3
+    np.testing.assert_array_equal(vox.CART_VECTORS, jvox.CART_VECTORS)
+    np.testing.assert_array_equal(vox.FCC_VECTORS, jvox.FCC_VECTORS)
+
+
+@pytest.mark.parametrize("sig", ["impulse", "hann10", "hann20", "dhann30",
+                                 "hann5ms"])
+@pytest.mark.parametrize("fcc", [False, True])
+def test_comms_copy_equal(sig, fcc):
+    c = jconsts.SimConsts(h=0.1, fcc=fcc)
+    g = jgrid.CartGrid(h=0.1, offset=3.5, bmin=np.zeros(3),
+                       bmax=np.array([2.0, 1.6, 1.2]), fcc=fcc)
+    out = []
+    for mod in (comms, jcomms):
+        sc = mod.SimComms(g.xv, g.yv, g.zv, c.h, c.Ts, c.l2, fcc=fcc)
+        sc.prepare_source_pts(np.array([0.9, 0.7, 0.55]))
+        sc.prepare_receiver_pts(np.array([[0.3, 0.4, 0.5], [1.5, 1.1, 0.8]]))
+        sc.prepare_source_signals(0.01, sig_type=sig)
+        sc.diff_source()
+        out.append(sc.to_comms_data())
+    _assert_dc_equal(*out)
+
+
+def test_h5_copy_reads_and_writes_like_the_original(tmp_path):
+    sim = demo.synthetic_box_sim(1.2, 1.0, 0.9, h=0.1, Nt=6, fcc=True,
+                                 insig_type="hann10", DEF=DEF11)
+    save_sim_data(sim, tmp_path)
+    for name in ("consts", "vox", "comms", "mats"):
+        a = getattr(h5, "read_" + name)(tmp_path)
+        b = getattr(jh5, "read_" + name)(tmp_path)
+        assert type(a).__module__ == simdata.__name__
+        _assert_dc_equal(a, b)
+    u = np.random.default_rng(3).standard_normal((sim.comms.Nr, 6))
+    ro = np.arange(sim.comms.Nr)[::-1].copy()
+    h5.write_outputs(tmp_path, u, ro)
+    np.testing.assert_array_equal(jh5.read_outputs(tmp_path), u[ro])
+    np.testing.assert_array_equal(h5.read_outputs(tmp_path), u[ro])
+    simdata.write_outputs(tmp_path, u)
+    np.testing.assert_array_equal(jh5.read_outputs(tmp_path), u)

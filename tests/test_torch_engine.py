@@ -189,7 +189,8 @@ def test_cli_sim_matches_jax_cli(tmp_path):
     save_sim_data(sim, a)
     shutil.copytree(a, b)
     jax_main(["sim", "--data_dir", str(a), "--f64"])
-    torch_main(["sim", "--data_dir", str(b), "--f64", "--nsteps", "8"])
+    torch_main(["sim", "--data_dir", str(b), "--f64", "--nsteps", "8",
+                "--device", "cpu"])
     ua, ub = read_outputs(a), read_outputs(b)
     assert ua.shape == ub.shape == (sim.comms.Nr, 24)
     assert _rel(ub, ua) < 1e-12
