@@ -72,7 +72,7 @@ SMALL = {  # name: (box, h, fcc, fold, Nt), the scenes of test_pallas_stencil
     "fcc_folded": ((2.2, 1.8, 1.5), 0.12, True, True, 30),
 }
 STREAM_MB = (64, 512, 2048)
-# NVIDIA's published H100 SXM peaks (on-chip-measurement guide, table 4)
+# NVIDIA's published H100 SXM peaks (dense, no sparsity)
 HBM_BPS = 3.35e12
 FP32_OPS, FP64_OPS = 67e12, 34e12
 SRC = "pffdtd_tpu_torch/csrc/"
