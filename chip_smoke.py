@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (pffdtd_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # one card, every phase
+    python3 chip_smoke.py --cards    # phase 5 with one slab per card (4)
 
 Phases, each fatal on failure (no CPU fallback; exit code != 0):
 1. Device and build: the card's name and power limit (nvidia-smi), then the
-   build of the CUDA kernels K1 (csrc/stencil.cu), K2 (csrc/boundary.cu),
-   K3 (csrc/tb.cu) and K4 (csrc/stream.cu) from this checkout's sources.
+   build of the CUDA kernels K1 and K5 (csrc/stencil.cu), K2
+   (csrc/boundary.cu), K3 (csrc/tb.cu), K6 (csrc/tb.cu through
+   csrc/tb_shard.cu) and K4 (csrc/stream.cu) from this checkout's sources,
+   one nvcc per source, all started together.
    K4, the streaming probe, is held against PyTorch's sum, fill_ and copy_
    and timed at 64 MB, 512 MB and 2 GB: GB/s per mode beside PyTorch's.
 2. Per-kernel checks at the main path's shapes, from a seeded random state:
@@ -16,10 +19,17 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    sweep of TB = 2 and TB = 3 (fields, vh/gh, taps): <= 1e-5 of the largest
    magnitude of each output.  Then fp64 on the small scenes of phase 3,
    <= 1e-12.  Kernels and plain versions are timed with CUDA events.
+   K5 and K6, the shard modes (in phase 5, on the engines it builds): K5 vs
+   its plain version on the first, a middle and the last slab of the D = 4
+   split, <= 1e-6; K6 with TB = 2 and 3 on the same slabs (fields, owned
+   vh/gh, taps), <= 1e-5 of each output's largest magnitude; then fp64 on
+   the small scenes at D = 2, <= 1e-12.
 3. Small scenes, fp64, kernels vs plain versions: a lossy Cartesian box and
    a lossy FCC box, unfolded and folded.  The single-step route, and the
    TB = 3 and pair (TB = 2) routes over 29 steps (not a multiple of TB, so
-   the tail steps run), vs the plain single-step path: receivers <= 1e-12.
+   the tail steps run), vs the plain single-step path: receivers <= 1e-12;
+   the same three routes of the sharded engine at D = 2 (K5, K6), vs the
+   plain path on the same padded grid, <= 1e-12.
 4. The main path at full size: the bench's headline scene, a lossy folded-FCC
    box of 36 x 28 x 23 m at h = 0.046 (11-branch material), rotated
    "descending", folded and sorted: a 792 x 310 x 510 grid, about 125 Mvox,
@@ -30,6 +40,17 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    must match to <= 1e-5 of max |u_out|.  Two receivers sit 1.6 m from the
    source: the bench's default positions lie beyond the 5.9 m that 128 steps
    can reach, and would read exact zeros.
+5. The x-slab path at full size: the headline scene through
+   make_sharded_engine with every slab on cuda:0 (the halo exchange is then
+   a copy on the card): D = 4 on the step, pair and tb (TB = 3) routes and
+   D = 2 on the step route, 128 fp32 steps, best of 3, launch counts
+   checked per run (K5 4 x 128 on step; K6 4 x 42 plus 4 x 2 tail steps of
+   K5 + K2 on tb).  Receivers vs the single-device engine on the same
+   padded grid and route <= 1e-5 of max |u_out| (bitwise equality is
+   printed, and expected).  Printed per run: MVPS, frac (the ratio to the
+   single-device rate of the same route on the same grid), the exchange
+   time per step (CUDA events around the copies, one extra run) and the
+   engine's peak device memory.  Each engine is freed before the next.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  The work sits under `__main__`, so importing
 this file runs nothing.
@@ -50,12 +71,17 @@ from pffdtd_tpu_torch.io.simdata import MMb
 from pffdtd_tpu_torch.kernels import _build
 from pffdtd_tpu_torch.kernels.boundary import boundary_update, \
     boundary_update_plain
-from pffdtd_tpu_torch.kernels.stencil import stencil_step, stencil_step_plain
+from pffdtd_tpu_torch.kernels.stencil import (stencil_step,
+                                              stencil_step_plain,
+                                              stencil_step_shard,
+                                              stencil_step_shard_plain)
 from pffdtd_tpu_torch.kernels.stream import measure, stream, stream_plain, \
     time_ms
-from pffdtd_tpu_torch.kernels.tb import tb_sweep, tb_sweep_plain
-from pffdtd_tpu_torch.scene import fold_fcc_sim, rotate_sim, sort_sim, \
-    synthetic_box_sim
+from pffdtd_tpu_torch.kernels.tb import (tb_sweep, tb_sweep_plain,
+                                         tb_sweep_shard, tb_sweep_shard_plain)
+from pffdtd_tpu_torch.parallel.sharded_engine import make_sharded_engine
+from pffdtd_tpu_torch.scene import (fold_fcc_sim, pad_x_interior, rotate_sim,
+                                    sort_sim, synthetic_box_sim)
 
 SEED = 0
 NT = 128
@@ -83,8 +109,16 @@ KERNELS = {  # name: (source, replaces)
                            "pffdtd_tpu/engine/pallas_boundary.py:407"),
     "K3 tb_sweep": (SRC + "tb.cu", "pffdtd_tpu/engine/pallas_tb.py:77"),
     "K4 stream": (SRC + "stream.cu", "probes/dma_plateau.py:105"),
+    "K5 stencil_step_shard": (SRC + "stencil.cu",
+                              "pffdtd_tpu/engine/pallas_stencil.py:436"),
+    "K6 tb_sweep_shard": (SRC + "tb.cu",
+                          "pffdtd_tpu/engine/pallas_pair.py:212"),
 }
-WRAPPERS = (stencil_step, boundary_update, tb_sweep, stream)
+WRAPPERS = (stencil_step, boundary_update, tb_sweep, stream,
+            stencil_step_shard, tb_sweep_shard)
+# phase 5: (slabs, route) on cuda:0
+SHARDED = ((4, "step", {}), (4, "pair", {}), (4, "tb", {"tb": 3}),
+           (2, "step", {}))
 
 
 class SmokeFailure(Exception):
@@ -122,6 +156,13 @@ def headline_scene(nt):
 def engine(sim, dtype, **kw):
     return TorchEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
                        mats=sim.mats, dtype=dtype, device="cuda", **kw)
+
+
+def sharded(sim, dtype, D, devices=None, **kw):
+    return make_sharded_engine(consts=sim.consts, vox=sim.vox,
+                               comms=sim.comms, mats=sim.mats,
+                               devices=devices or ["cuda:0"] * D,
+                               dtype=dtype, **kw)
 
 
 def random_state(eng, gen):
@@ -204,6 +245,70 @@ def tb_check(eng, gen, timing_reps=0):
     return (max(e[0] for e in errs), max(e[1] for e in errs)) + t
 
 
+def randn(gen, dtype, *shape):
+    return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+
+def k5_check(eng, gen, k, timing_reps=0):
+    """One K5 call vs stencil_step_shard_plain on slab k from a random
+    state; (max rel err, max abs err, kernel ms, plain ms) on the owned
+    rows."""
+    sh, sc = eng.shards[k], eng.data.sc
+    sl = sh.slab
+    u0, u1 = randn(gen, eng.dtype, *sl.shape), randn(gen, eng.dtype, *sl.shape)
+    outk, outp = torch.zeros_like(u0), torch.zeros_like(u0)
+    stencil_step_shard(u0, u1, sh.adj, outk, sl, sc)
+    stencil_step_shard_plain(u0, u1, sh.adj, outp, sl, sc)
+    torch.cuda.synchronize()
+    own = (slice(*sl.owned), slice(1, -1), slice(1, -1))
+    t = (None, None)
+    if timing_reps:
+        t = (time_ms(lambda: stencil_step_shard(u0, u1, sh.adj, outk, sl, sc),
+                     timing_reps),
+             time_ms(lambda: stencil_step_shard_plain(u0, u1, sh.adj, outp,
+                                                      sl, sc), 3))
+    return rel(outk[own], outp[own]) + t
+
+
+def k6_check(eng, gen, k, timing_reps=0):
+    """One K6 sweep vs tb_sweep_shard_plain on slab k from a random state
+    (owned rows of both fields, owned nodes' vh/gh, taps); as tb_check."""
+    sh = eng.shards[k]
+    st, sl, TB = sh.tb_scene, sh.slab, eng.TB
+    nbl, dt = sh.bnl.numel(), eng.dtype
+    u0, u1 = randn(gen, dt, *sl.shape), randn(gen, dt, *sl.shape)
+    vh, gh = randn(gen, dt, MMb, nbl), randn(gen, dt, MMb, nbl)
+    sig = randn(gen, dt, TB, st.in_ixyz.numel())
+    nr = st.out_ixyz_f.numel()
+
+    def buffers():
+        o = [torch.zeros_like(u0) for _ in range(2)]
+        s = [torch.zeros_like(vh) for _ in range(2)]
+        taps = torch.zeros((TB - 2, nr), dtype=dt, device=u0.device) \
+            if TB > 2 else None
+        return o, s, taps
+
+    (ok_, sk, tk), (op, sp, tp) = buffers(), buffers()
+    tb_sweep_shard(st, u0, u1, *ok_, vh, gh, *sk, sig, tk)
+    tb_sweep_shard_plain(st, u0, u1, *op, vh, gh, *sp, sig, tp)
+    torch.cuda.synchronize()
+    own = (slice(*sl.owned), slice(1, -1), slice(1, -1))
+    mine = torch.from_numpy(sh.part.node_own).to(u0.device)
+    pairs = [(ok_[0][own], op[0][own]), (ok_[1][own], op[1][own]),
+             (sk[0][:, mine], sp[0][:, mine]),
+             (sk[1][:, mine], sp[1][:, mine])]
+    if TB > 2:
+        pairs.append((tk, tp))
+    errs = [rel(a, b) for a, b in pairs if b.numel()]
+    t = (None, None)
+    if timing_reps:
+        t = (time_ms(lambda: tb_sweep_shard(st, u0, u1, *ok_, vh, gh, *sk,
+                                            sig, tk), timing_reps),
+             time_ms(lambda: tb_sweep_shard_plain(st, u0, u1, *op, vh, gh,
+                                                  *sp, sig, tp), 2))
+    return (max(e[0] for e in errs), max(e[1] for e in errs)) + t
+
+
 def reset_counts():
     for w in WRAPPERS:
         w.launches = 0
@@ -215,14 +320,16 @@ def counts():
 
 def run_route(eng, want, reps=3):
     """Best of `reps` runs of NT steps; each run's launch counts (K1, K2,
-    K3, K4) are reset just before it and must equal `want` just after."""
+    K3, K4, K5, K6) are reset just before it and must equal `want` just
+    after."""
     runs = []
     for _ in range(reps):
         reset_counts()
         u = eng.run(nt=NT, verbose=False)
         runs.append((eng.elapsed, counts()))
     require(all(c == want for _, c in runs),
-            f"{eng.backend} TB={eng.TB}: launches per run "
+            f"{type(eng).__name__} {eng.backend} TB={eng.TB}: launches "
+            f"per run "
             f"{[c for _, c in runs]}, want {want}")
     require(np.isfinite(u).all() and np.abs(u).max() > 0,
             "main path: u_out not finite or all zero")
@@ -235,6 +342,130 @@ def bound_ms(nbytes, nops=0.0, fp64=False):
     tb = nbytes / HBM_BPS * 1e3
     to = nops / (FP64_OPS if fp64 else FP32_OPS) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def slab_bytes_ops(eng, k):
+    """Bytes a K5 call (route step) or a K6 sweep (route tb) on slab k must
+    move, each input read once and each output written once, and its
+    floating-point operations (29 a stencil point, 80 a lossy node)."""
+    sh = eng.shards[k]
+    sl, isz = sh.slab, eng.data.dtype.itemsize
+    asz = sh.adj.element_size()
+    plane = (sl.shape[1] - 2) * (sl.shape[2] - 2)
+    S = sl.S
+    if eng.TB is None:
+        return plane * S * (3 * isz + asz), 29.0 * plane * S
+    TB = eng.TB
+    (xa, xb), (xl, xh) = sl.owned, sl.computable
+    rows = [min(xb + TB - 1 - s, xh) - max(xa - TB + 1 + s, xl)
+            for s in range(TB)]
+    st = sh.tb_scene
+    n_in, n_own = sh.bnl.numel(), int(sh.part.node_own.sum())
+    nbytes = (plane * ((xh - xl) * isz + rows[0] * (isz + asz) + 2 * S * isz)
+              + n_in * (2 * MMb * isz + isz + 4) + n_own * 2 * MMb * isz
+              + 4 * (st.tl_ptr.numel() + 3 * st.tl_node.numel()))
+    node_x = sh.part.bnl // (sl.shape[1] * sl.shape[2])
+    nodes = sum(int(((node_x >= max(xa - TB + 1 + s, xl))
+                     & (node_x < min(xb + TB - 1 - s, xh))).sum())
+                for s in range(TB))
+    return nbytes, 29.0 * plane * sum(rows) + 80.0 * nodes
+
+
+def phase5(sim, gen, single, roof, configs=SHARDED, cards=False):
+    """The x-slab runs of phase 5 and the shard-mode checks of phase 2.
+    single: {(route, Nx): (u_out, seconds, grid)} of the single-device
+    runs so far (phase 4's step route on the unpadded grid).  cards: one
+    slab per card instead of all on cuda:0, and no kernel checks.  Returns
+    the K5 and K6 rows of the kernels' record."""
+    npts = lambda gr: gr.Nx * gr.Ny * gr.Nz
+    chk, rows = {}, {}
+    for D, backend, kw in configs:
+        devs = [f"cuda:{i}" for i in range(D)] if cards else ["cuda:0"] * D
+        ps = pad_x_interior(sim, D)
+        key = (backend, ps.vox.Nx)
+        if key not in single:      # the single-device run on this grid
+            e1 = engine(ps, np.float32, backend=backend, **kw)
+            u1, t1, _ = run_route(e1, counts_of(e1, 1, e1.data.grid))
+            single[key] = (u1, t1, e1.data.grid)
+            del e1
+            torch.cuda.empty_cache()
+        u_ref, t_ref, g_ref = single[key]
+        used = sorted(set(devs))
+        base = {dv: torch.cuda.memory_allocated(dv) for dv in used}
+        t0 = time.perf_counter()
+        es = sharded(sim, np.float32, D, devices=devs, backend=backend, **kw)
+        torch.cuda.synchronize()
+        t_set = time.perf_counter() - t0
+        g = es.data.grid
+        require(g.shape == g_ref.shape, f"padded grid {g.shape} vs "
+                f"{g_ref.shape}")
+        name = f"x{D} {backend}" + (f" TB={es.TB}" if es.TB else "")
+        print(f"[5] {name}: {D} slabs of {es.S} rows on {g.shape} on "
+              f"{', '.join(used)}, host setup {t_set:.2f} s", flush=True)
+        if D == 4 and not cards:
+            what = "K5" if es.TB is None else f"K6 TB={es.TB}"
+            for k in (0, 1, D - 1):
+                fn = k5_check if es.TB is None else k6_check
+                r = fn(es, gen, k, timing_reps=(20 if es.TB is None else 10)
+                       if k == 1 else 0)
+                chk[(what, k)] = r
+                tms = (f", kernel {r[2]:.4f} ms, plain {r[3]:.4f} ms"
+                       if r[2] is not None else "")
+                print(f"[2] {what} fp32 main shapes slab {k}/{D}: max rel "
+                      f"err {r[0]:.3e} (abs {r[1]:.3e}){tms}", flush=True)
+                require(r[0] <= (1e-6 if es.TB is None else 1e-5),
+                        f"{what} fp32 slab {k} disagrees: {r[0]}")
+        for dv in used:    # the run's peak, not the checks' temporaries
+            torch.cuda.reset_peak_memory_stats(dv)
+        u, t, c = run_route(es, counts_of(es, D, g))
+        es.run(nt=NT, verbose=False, time_exchange=True)
+        x_ms = es.exchange_ms / NT
+        peak = max(torch.cuda.max_memory_allocated(dv) - base[dv]
+                   for dv in used) / 1e9
+        scale = np.abs(u_ref).max()
+        err = np.abs(u - u_ref).max() / scale
+        mv, mv1 = npts(g) * NT / t / 1e6, npts(g) * NT / t_ref / 1e6
+        print(f"[5] {name}: {mv:.1f} MVPS (best {t:.4f} s), frac "
+              f"{mv / mv1:.4f} of the single device's {mv1:.1f}; exchange "
+              f"{x_ms:.4f} ms/step; peak device memory {peak:.2f} GB "
+              f"(a card, the engine's own); "
+              f"launches (K1 .. K6) {c}; receivers vs single device "
+              f"{err:.3e} of max |u_out| {scale:.3e}, bitwise equal "
+              f"{np.array_equal(u, u_ref)}", flush=True)
+        require(err <= 1e-5, f"{name} receivers disagree: {err}")
+        if D == 4 and backend == "step" and not cards:
+            nb, no = slab_bytes_ops(es, 1)
+            r = chk[("K5", 1)]
+            rows["K5 stencil_step_shard"] = (
+                c[4], max(chk[("K5", k)][1] for k in (0, 1, 3)), r[2], r[3],
+                nb, no, None)
+        if D == 4 and es.TB == 3 and not cards:
+            nb, no = slab_bytes_ops(es, 1)
+            r = chk[("K6 TB=3", 1)]
+            rows["K6 tb_sweep_shard"] = (
+                c[5], max(chk[(w, k)][1] for w in ("K6 TB=2", "K6 TB=3")
+                          for k in (0, 1, 3)), r[2], r[3], nb, no, None)
+            print(f"[5] K6 TB=3 {r[2]:.4f} ms/sweep on slab 1 = "
+                  f"{r[2] / 3:.4f} ms/step; bound {nb / roof / 1e6:.4f} ms "
+                  f"at K4's roof", flush=True)
+        if D == 4 and backend == "step" and not cards:
+            print(f"[5] K5 {chk[('K5', 1)][2]:.4f} ms on slab 1 = "
+                  f"{nb / chk[('K5', 1)][2] / 1e6:.1f} GB/s", flush=True)
+        del es
+        torch.cuda.empty_cache()
+    return rows
+
+
+def counts_of(eng, D, g):
+    """The launches (K1 .. K6) one NT-step run of `eng` must make."""
+    TB = eng.TB
+    if D == 1 and TB is None:
+        return (NT, NT, 0, 0, 0, 0)
+    if D == 1:
+        return (NT % TB, NT % TB, NT // TB, 0, 0, 0)
+    if TB is None:
+        return (0, D * NT, 0, 0, D * NT, 0)
+    return (0, D * (NT % TB), 0, 0, D * (NT % TB), D * (NT // TB))
 
 
 def main():
@@ -330,6 +561,17 @@ def main():
             print(f"[2] K3 TB={TB} fp64 {n}: max rel err {r:.3e}",
                   flush=True)
             require(r <= 1e-12, f"K3 TB={TB} fp64 {n} disagrees: {r}")
+        for kw in ({"backend": "step"}, {"backend": "tb", "tb": 2},
+                   {"backend": "tb", "tb": 3}):
+            e = sharded(s, np.float64, 2, **kw)
+            for k in range(2):
+                r = (k5_check(e, gen, k) if e.TB is None
+                     else k6_check(e, gen, k))[0]
+                name = "K5" if e.TB is None else f"K6 TB={e.TB}"
+                print(f"[2] {name} fp64 {n} slab {k}/2: max rel err "
+                      f"{r:.3e}", flush=True)
+                require(r <= 1e-12, f"{name} fp64 {n} slab {k} disagrees: "
+                        f"{r}")
 
     # ---- 3. small scenes, fp64 kernel routes vs the plain path
     for n, s in small.items():
@@ -345,25 +587,39 @@ def main():
                   flush=True)
             require(np.isfinite(uk).all(), f"{n} {kw}: not finite")
             require(err <= 1e-12, f"{n} {kw}: fp64 route disagrees: {err}")
+        ps = pad_x_interior(s, 2)          # the grid the D = 2 slabs run
+        up2 = engine(ps, np.float64, backend="step",
+                     use_kernels=False).run(nt=NT_SMALL, verbose=False)
+        for kw in ({"backend": "step"}, {"backend": "tb", "tb": 3},
+                   {"backend": "pair"}):
+            uk = sharded(s, np.float64, 2, **kw).run(nt=NT_SMALL,
+                                                      verbose=False)
+            err = np.abs(uk - up2).max() / np.abs(up2).max()
+            print(f"[3] {n} fp64 x2 slabs {kw} receivers vs plain: "
+                  f"{err:.3e}", flush=True)
+            require(np.isfinite(uk).all(), f"{n} x2 {kw}: not finite")
+            require(err <= 1e-12, f"{n} x2 {kw}: fp64 route disagrees: "
+                    f"{err}")
 
     # ---- 4. the main path: 128 fp32 steps per route, best of 3
     tb3 = NT // 3, NT % 3
-    u_tb, t_tb, c_tb = run_route(eng_tb, (tb3[1], tb3[1], tb3[0], 0))
-    u_pr, t_pr, c_pr = run_route(eng_pair, (0, 0, NT // 2, 0))
-    u_k, t_k, c_k = run_route(eng, (NT, NT, 0, 0))
+    u_tb, t_tb, c_tb = run_route(eng_tb,
+                                 (tb3[1], tb3[1], tb3[0], 0, 0, 0))
+    u_pr, t_pr, c_pr = run_route(eng_pair, (0, 0, NT // 2, 0, 0, 0))
+    u_k, t_k, c_k = run_route(eng, (NT, NT, 0, 0, 0, 0))
     eng.use_kernels = False
     reset_counts()
     t_p = []
     for _ in range(3):
         u_p = eng.run(nt=NT, verbose=False)
         t_p.append(eng.elapsed)
-    require(counts() == (0, 0, 0, 0), "the plain path launched a kernel")
+    require(counts() == (0,) * 6, "the plain path launched a kernel")
     scale = np.abs(u_p).max()
     isz = eng.state[0].element_size()
     ni = g.n_interior
     k1_ms, k2_ms = main_chk["K1"][2], main_chk["K2"][2]
     k1_bytes = ni * (3 * isz + eng.adj.element_size())
-    print(f"[4] launches (K1, K2, K3, K4) per {NT} steps: tb TB=3 {c_tb}, "
+    print(f"[4] launches (K1 .. K6) per {NT} steps: tb TB=3 {c_tb}, "
           f"pair {c_pr}, step {c_k}", flush=True)
     for name, u, t in (("tb TB=3", u_tb, t_tb), ("pair", u_pr, t_pr),
                        ("step", u_k, t_k), ("plain", u_p, min(t_p))):
@@ -388,6 +644,11 @@ def main():
     print(f"[4] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
 
+    single = {("step", g.Nx): (u_k, t_k, g)}   # (route, Nx) -> run
+    del eng_tb, eng_pair
+    torch.cuda.empty_cache()
+    p5 = phase5(sim, gen, single, roof)
+
     k2_bytes = eng.data.Nbl * (4 * MMb * isz + 8 + isz + 4 + 3 * isz)
     k4_bytes = 2 * k4["size_mb"] * (1 << 20)
     rows = {
@@ -401,6 +662,7 @@ def main():
                         + 3 * 80.0 * eng.data.Nbl, None),
         "K4 stream": (k4_launches, s_err, k4["ms"], k4["torch_ms"], k4_bytes,
                       0.0, k4["torch_ms"]),
+        **p5,
     }
     rec = {"kernels": []}
     for name, (n, err, ms, pms, nbytes, nops, lib_ms) in rows.items():
@@ -417,9 +679,31 @@ def main():
         "count": 1}}))
 
 
+def main_cards():
+    """Phase 5 with one slab per card: D = 2 and 4 on the step, pair and tb
+    routes, each against the single-device engine on cuda:0 (no kernel
+    checks: the default run makes them).  Needs four cards."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 4:
+        raise SmokeFailure(f"--cards needs 4 cards, this machine has {n}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    print(smi.strip())
+    lib = _build.library()
+    print(f"[1] built {lib.path.name} in {lib.build_seconds:.2f} s",
+          flush=True)
+    configs = tuple((D, b, kw) for D in (2, 4) for b, kw in
+                    (("step", {}), ("pair", {}), ("tb", {"tb": 3})))
+    phase5(headline_scene(NT), None, {}, None, configs, cards=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": 4}}))
+
+
 if __name__ == "__main__":
     try:
-        main()
+        main_cards() if sys.argv[1:] == ["--cards"] else main()
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         sys.exit(1)

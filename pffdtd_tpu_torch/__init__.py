@@ -5,8 +5,9 @@ same FDTD update (mirror halo flips, adjacency-masked 7/13-point stencil with
 the leapfrog, the lossy-boundary ODE, Engquist-Majda ABCs, sources and
 receivers) with PyTorch tensors on the host side and hand-written CUDA
 kernels on the card, one step per launch (K1 + K2) or TB steps per launch
-(K3).  Nothing here imports `jax` or `pffdtd_tpu`, and `h5py` is imported
-only inside the sim-folder reader and writer.
+(K3), on one device or as x-slabs over a list of devices (K5, K6: the
+shard modes of K1 and K3).  Nothing here imports `jax` or `pffdtd_tpu`,
+and `h5py` is imported only inside the sim-folder reader and writer.
 
 Subpackages
 -----------
@@ -14,14 +15,17 @@ Subpackages
 - ``engine``     coefficients, host-side static arrays and tile lists, the
                  TorchEngine runner
 - ``kernels``    K1 (stencil + ABC), K2 (lossy boundary), K3 (TB steps per
-                 sweep) and K4 (bandwidth probe) wrappers, each beside its
-                 plain PyTorch version, and the nvcc/ctypes build step
-- ``csrc``       the CUDA C++ sources of K1-K4
+                 sweep), K4 (bandwidth probe), K5 and K6 (K1 and K3 on an
+                 x-slab) wrappers, each beside its plain PyTorch version,
+                 and the nvcc/ctypes build step
+- ``csrc``       the CUDA C++ sources of K1-K6
+- ``parallel``   the x-slab partition and ShardedTorchEngine /
+                 make_sharded_engine over a device list
 - ``scene``      synthetic box scenes and the in-memory rotate/fold/sort
 - ``consts``, ``comms``, ``utils``, ``voxelizer``
                  copies of the JAX package's numpy-only helpers
-- ``convert``    state carried across from the JAX engine's layouts
+- ``convert``    state carried across from the JAX engines' layouts
 - ``cli``        ``python -m pffdtd_tpu_torch.cli sim --data_dir DIR``
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

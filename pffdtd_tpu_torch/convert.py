@@ -8,6 +8,14 @@ Pallas boundary kernels (`node_slot` gives each node's position,
 pallas_boundary.py:158 for tiles, :707 for dense subwindows).  The port keeps
 the true grid and (MMb, Nbl) states.  These functions map one to the other,
 so tests can start both implementations from the same random state.
+
+The x-slab engines: `slabs_to_global` assembles the port's per-slab arrays
+(`parallel.partition`) into the global grid, and `slabs_from_jax` /
+`slabs_to_jax` map them from and to the JAX sharded layouts, (D*Nxp_loc,
+Nyp, Nzp) with each shard's rows at [k*Nxp_loc, (k+1)*Nxp_loc): its S owned
+rows after `ghosts` ghost rows, then the other side's ghosts and pad rows
+(`ShardedPallasEngine`: ghosts = 1, local row 1 = global 1 + k*S;
+`ShardedPairEngine`: ghosts = 2, x0 = k*S - 1).
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ import numpy as np
 import torch
 
 from pffdtd_tpu_torch.io.simdata import MMb
+from pffdtd_tpu_torch.parallel.partition import split_rows
 
 
 def _unpad_indices(ixyz, jax_grid):
@@ -189,3 +198,50 @@ def state_to_planes(vh, gh, planes, strays, data):
             d[fam] = a
         res.append(d)
     return tuple(res)
+
+
+# ------------------------------------------------------------ x-slabs
+def slabs_to_global(slabs, specs) -> np.ndarray:
+    """Per-slab arrays or tensors (rows first, `SlabSpec` layouts) -> the
+    global array: each row from the slab that owns it, the halo rows 0 and
+    Nx-1 from the edge slabs."""
+    arrs = [np.asarray(a.cpu() if torch.is_tensor(a) else a) for a in slabs]
+    Nx = specs[0].grid.Nx
+    out = np.zeros((Nx,) + arrs[0].shape[1:], arrs[0].dtype)
+    for a, sl in zip(arrs, specs):
+        lo = 0 if sl.x0 == 1 else sl.x0
+        hi = Nx if sl.x0 + sl.S == Nx - 1 else sl.x0 + sl.S
+        out[lo:hi] = a[lo - sl.xo:hi - sl.xo]
+    return out
+
+
+def _jax_rows(D, S, ghosts):
+    """Per JAX shard k: (global row of its local row 0, rows it holds)."""
+    return [(1 + k * S - ghosts, S + 2 * ghosts) for k in range(D)]
+
+
+def slabs_from_jax(u, jax_grid, specs, ghosts: int) -> list[np.ndarray]:
+    """A JAX sharded field (D*Nxp_loc, Nyp, Nzp) -> the port's slabs."""
+    u = np.asarray(u)
+    g, D, S = jax_grid, len(specs), specs[0].S
+    nxp = u.shape[0] // D
+    glob = np.zeros((g.Nx, g.Ny, g.Nz), u.dtype)
+    for k, (x0, _) in enumerate(_jax_rows(D, S, ghosts)):
+        lo = 0 if k == 0 else 1 + k * S
+        hi = g.Nx if k == D - 1 else 1 + (k + 1) * S
+        glob[lo:hi] = u[k * nxp + lo - x0:k * nxp + hi - x0, :g.Ny, :g.Nz]
+    return split_rows(glob, specs)
+
+
+def slabs_to_jax(slabs, specs, jax_grid, nxp_loc: int,
+                 ghosts: int) -> np.ndarray:
+    """The port's slabs -> a JAX sharded field (D*Nxp_loc, Nyp, Nzp): each
+    shard's owned and ghost rows as the exchange leaves them (the global
+    rows), zeros in the pad rows and the y/z padding."""
+    glob = slabs_to_global(slabs, specs)
+    g, D, S = jax_grid, len(specs), specs[0].S
+    out = np.zeros((D, nxp_loc, g.Nyp, g.Nzp), glob.dtype)
+    for k, (x0, n) in enumerate(_jax_rows(D, S, ghosts)):
+        lo, hi = max(x0, 0), min(x0 + n, g.Nx)
+        out[k, lo - x0:hi - x0, :g.Ny, :g.Nz] = glob[lo:hi]
+    return out.reshape(D * nxp_loc, g.Nyp, g.Nzp)

@@ -21,6 +21,18 @@
 // intact for K2 and the next step (no aliasing hazard, unlike the TPU
 // kernel's out-aliases-u0).
 //
+// K5, shard mode (SHARD = true): the same step on the owned rows of one
+// x-slab, replacing pffdtd_tpu/engine/pallas_stencil.py
+// `build_fused_stencil_sharded`.  The slab holds S owned rows at local rows
+// g0 .. g0+S-1 between ghost rows that carry the neighbours' data; local row
+// i is global row i + xo, and Nx is the global extent.  Three things differ
+// from K1: the launch covers the owned rows only (so one kernel serves the
+// step route's one ghost row and the TB route's tail steps at TB ghost
+// rows); the x mirror and the x faces of the ABC are found from the global
+// row, so only a slab that owns a global edge flips there, while ghost rows
+// of inner edges are real neighbour data; y, z and the fold ghost are K1's.
+// SHARD = false compiles to K1 as it was: g0 and xo are not read.
+//
 // Bound: device-memory bandwidth.  Each point reads u1, u0 and adj and writes
 // out once (fp32 FCC: 4 + 4 + 2 + 4 = 14 bytes); the 12 neighbour re-reads of
 // u1 are meant to hit L1/L2, since a block's threads walk one z-row and the
@@ -52,20 +64,21 @@ __device__ __forceinline__ int3 leg(int k) {
   }
 }
 
-template <typename T, typename A, int NN>
+template <typename T, typename A, int NN, bool SHARD>
 __global__ void __launch_bounds__(kThreads)
 stencil_step_kernel(const T* __restrict__ u0, const T* __restrict__ u1,
                     const A* __restrict__ adj, T* __restrict__ out,
                     int Nx, int Ny, int Nz, int folded,
-                    T a2, T sl2, T lQ1, T lQ2, T lQ3) {
+                    T a2, T sl2, T lQ1, T lQ2, T lQ3, int g0, int xo) {
   const int iz = 1 + blockIdx.x * kThreads + threadIdx.x;
   const int iy = 1 + blockIdx.y;
-  const int ix = 1 + blockIdx.z;
+  const int ix = (SHARD ? g0 : 1) + blockIdx.z;  // local row
   if (iz > Nz - 2) return;
   const int sy = Nz;
   const int sx = Ny * Nz;  // the launcher checks that it fits an int
   const long long c = (long long)ix * sx + (long long)iy * sy + iz;
-  const bool xlo = ix == 1, xhi = ix == Nx - 2;
+  const int gx = SHARD ? ix + xo : ix;            // global row
+  const bool xlo = gx == 1, xhi = gx == Nx - 2;
   const bool ylo = iy == 1, yhi = iy == Ny - 2;
   const bool zlo = iz == 1, zhi = iz == Nz - 2;
   // offset of the neighbour at d = -1, 0, +1 along each axis, after flips
@@ -98,22 +111,46 @@ stencil_step_kernel(const T* __restrict__ u0, const T* __restrict__ u1,
   out[c] = unew;
 }
 
-template <typename T, typename A, int NN>
+template <typename T, typename A, int NN, bool SHARD>
 int launch(const void* u0, const void* u1, const void* adj, void* out,
            int Nx, int Ny, int Nz, int folded, double a2, double sl2,
-           double lQ1, double lQ2, double lQ3, cudaStream_t stream) {
+           double lQ1, double lQ2, double lQ3, int g0, int S, int xo,
+           cudaStream_t stream) {
   if (Nx < 5 || Ny < 5 || Nz < 5) return (int)cudaErrorInvalidValue;
   // neighbour offsets are ints: an (y, z) plane plus a row must fit
   if ((long long)Ny * Nz + Nz + 1 > 2147483647LL)
     return (int)cudaErrorInvalidValue;
-  if (Nx - 2 > 65535 || Ny - 2 > 65535)
+  const int rows = SHARD ? S : Nx - 2;
+  if (rows < 1 || rows > 65535 || Ny - 2 > 65535)
     return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((Nz - 2 + kThreads - 1) / kThreads, Ny - 2, Nx - 2);
-  stencil_step_kernel<T, A, NN><<<grid, kThreads, 0, stream>>>(
+  // the owned rows must be global interior rows
+  if (SHARD && (g0 < 1 || g0 + xo < 1 || g0 + S + xo > Nx - 1))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((Nz - 2 + kThreads - 1) / kThreads, Ny - 2, rows);
+  stencil_step_kernel<T, A, NN, SHARD><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(u0), static_cast<const T*>(u1),
       static_cast<const A*>(adj), static_cast<T*>(out), Nx, Ny, Nz,
-      folded ? 1 : 0, T(a2), T(sl2), T(lQ1), T(lQ2), T(lQ3));
+      folded ? 1 : 0, T(a2), T(sl2), T(lQ1), T(lQ2), T(lQ3), g0, xo);
   return (int)cudaGetLastError();
+}
+
+template <bool SHARD>
+int dispatch(int dtype, int nn, const void* u0, const void* u1,
+             const void* adj, void* out, int Nx, int Ny, int Nz, int folded,
+             double a2, double sl2, double lQ1, double lQ2, double lQ3,
+             int g0, int S, int xo, cudaStream_t s) {
+#define PF_K1_ARGS \
+  u0, u1, adj, out, Nx, Ny, Nz, folded, a2, sl2, lQ1, lQ2, lQ3, g0, S, xo, s
+  if (dtype == 0 && nn == 6)
+    return launch<float, uint8_t, 6, SHARD>(PF_K1_ARGS);
+  if (dtype == 0 && nn == 12)
+    return launch<float, uint16_t, 12, SHARD>(PF_K1_ARGS);
+  if (dtype == 1 && nn == 6)
+    return launch<double, uint8_t, 6, SHARD>(PF_K1_ARGS);
+  if (dtype == 1 && nn == 12)
+    return launch<double, uint16_t, 12, SHARD>(PF_K1_ARGS);
+#undef PF_K1_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -125,18 +162,20 @@ extern "C" int pf_stencil_step(int dtype, int nn, const void* u0,
                                int Nx, int Ny, int Nz, int folded, double a2,
                                double sl2, double lQ1, double lQ2, double lQ3,
                                void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && nn == 6)
-    return launch<float, uint8_t, 6>(u0, u1, adj, out, Nx, Ny, Nz, folded, a2,
-                                     sl2, lQ1, lQ2, lQ3, s);
-  if (dtype == 0 && nn == 12)
-    return launch<float, uint16_t, 12>(u0, u1, adj, out, Nx, Ny, Nz, folded,
-                                       a2, sl2, lQ1, lQ2, lQ3, s);
-  if (dtype == 1 && nn == 6)
-    return launch<double, uint8_t, 6>(u0, u1, adj, out, Nx, Ny, Nz, folded,
-                                      a2, sl2, lQ1, lQ2, lQ3, s);
-  if (dtype == 1 && nn == 12)
-    return launch<double, uint16_t, 12>(u0, u1, adj, out, Nx, Ny, Nz, folded,
-                                        a2, sl2, lQ1, lQ2, lQ3, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(dtype, nn, u0, u1, adj, out, Nx, Ny, Nz, folded, a2,
+                         sl2, lQ1, lQ2, lQ3, 0, 0, 0,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// K5: the step on local rows g0 .. g0+S-1 of a slab whose local row i is
+// global row i + xo; Nx is the global extent, Ny and Nz the slab's.
+extern "C" int pf_stencil_step_shard(int dtype, int nn, const void* u0,
+                                     const void* u1, const void* adj,
+                                     void* out, int Nx, int Ny, int Nz,
+                                     int folded, int g0, int S, int xo,
+                                     double a2, double sl2, double lQ1,
+                                     double lQ2, double lQ3, void* stream) {
+  return dispatch<true>(dtype, nn, u0, u1, adj, out, Nx, Ny, Nz, folded, a2,
+                        sl2, lQ1, lQ2, lQ3, g0, S, xo,
+                        static_cast<cudaStream_t>(stream));
 }

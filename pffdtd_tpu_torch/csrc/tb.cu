@@ -38,6 +38,21 @@
 // kernels alias outputs onto inputs because their grid runs in order on one
 // core; blocks here run in no order.
 //
+// K6, shard mode (SHARD = true): the same sweep over the owned rows of one
+// x-slab, replacing the x-slab mode of pallas_pair.py `build_fused_pair`
+// (`shard=`), generalised to TB = 2..8.  The slab's local row i is global
+// row i + xo; Nx is the global extent.  Tiles cover the owned local rows
+// [xa, xb) only and load up to TB ghost rows as data: the x clamp of every
+// span is the computable range [xl, xh), all 2G+S local rows on an inner
+// edge and the global interior at a global edge.  The x mirror and the
+// ABC's x faces use the global row, so only a slab that owns a global edge
+// flips there.  The tile lists hold the lossy nodes of the ghost bands too
+// (ring > 0), with the owner's start-of-sweep states (the engine copies
+// them after every sweep); sources in a ghost band are added by every
+// slab that recomputes them, taps are written by the owner.  This file
+// builds K3; tb_shard.cu includes it with PF_TB_SHARD set to build K6, so
+// the two compile in parallel and K3's code is what it was.
+//
 // Sizes: fp32, TB = 3 and the owned box 8 x 8 x 32 give R = 14 x 14 x 38 =
 // 7,448 points: 2 levels x 29.8 KB + 14.9 KB of uint16 adjacency = 74.5 KB
 // of shared memory, so three blocks per SM; the launch bounds hold a thread
@@ -61,6 +76,10 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifndef PF_TB_SHARD
+#define PF_TB_SHARD 0
+#endif
 
 namespace {
 
@@ -110,15 +129,19 @@ struct Args {
   const int* rcv;  // (nr, 3) mirrored receiver coordinates
   T* taps;         // (TB-2, nr) rows u^{n+1} .. u^{n+TB-2}
   int nr;
+  int xa, xb, xl, xh, xo;  // shard mode: local x ranges and offset
 };
 
 // [lo, hi) along one axis of the owned box [o0, o1) grown by g, clamped to
-// the interior 1..N-2
+// the interior 1..N-2, or (x in shard mode) to [lo, hi)
 struct Span {
   int lo, hi;
 };
 __device__ __forceinline__ Span grow(int o0, int o1, int g, int N) {
   return Span{max(o0 - g, 1), min(o1 + g, N - 1)};
+}
+__device__ __forceinline__ Span grow(int o0, int o1, int g, int lo, int hi) {
+  return Span{max(o0 - g, lo), min(o1 + g, hi)};
 }
 
 // i / d for 0 <= i < 2^21 and d >= 1 through a float reciprocal:
@@ -135,16 +158,20 @@ struct DivMod {
   }
 };
 
-template <typename T, typename A, int NN, int TB>
+template <typename T, typename A, int NN, int TB, bool SHARD>
 __global__ void __launch_bounds__(kThreads, 3)
 tb_sweep_kernel(const Args<T, A> p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
   const int Nx = p.Nx, Ny = p.Ny, Nz = p.Nz;
-  const int ox0 = 1 + blockIdx.z * p.Bx, ox1 = min(ox0 + p.Bx, Nx - 1);
+  // owned rows [xa, xb), computable rows [xl, xh), global row = local + xo
+  const int xa = SHARD ? p.xa : 1, xb = SHARD ? p.xb : Nx - 1;
+  const int xl = SHARD ? p.xl : 1, xh = SHARD ? p.xh : Nx - 1;
+  const int xo = SHARD ? p.xo : 0;
+  const int ox0 = xa + blockIdx.z * p.Bx, ox1 = min(ox0 + p.Bx, xb);
   const int oy0 = 1 + blockIdx.y * p.By, oy1 = min(oy0 + p.By, Ny - 1);
   const int oz0 = 1 + blockIdx.x * p.Bz, oz1 = min(oz0 + p.Bz, Nz - 1);
-  const Span rx = grow(ox0, ox1, TB, Nx), ry = grow(oy0, oy1, TB, Ny),
+  const Span rx = grow(ox0, ox1, TB, xl, xh), ry = grow(oy0, oy1, TB, Ny),
              rz = grow(oz0, oz1, TB, Nz);
   const int Ry = ry.hi - ry.lo, Rz = rz.hi - rz.lo;
   const int nR = (rx.hi - rx.lo) * Ry * Rz;
@@ -156,8 +183,8 @@ tb_sweep_kernel(const Args<T, A> p) {
 
   // ---- load: u^n over R into bufB; u^{n-1} and adj over box_0 into bufA
   {
-    const Span bx = grow(ox0, ox1, TB - 1, Nx), by = grow(oy0, oy1, TB - 1, Ny),
-               bz = grow(oz0, oz1, TB - 1, Nz);
+    const Span bx = grow(ox0, ox1, TB - 1, xl, xh),
+               by = grow(oy0, oy1, TB - 1, Ny), bz = grow(oz0, oz1, TB - 1, Nz);
     const DivMod dz(Rz), dy(Ry);
     for (int i = tid; i < nR; i += kThreads) {
       const int t = dz.div(i), lx = dy.div(t);
@@ -203,7 +230,7 @@ tb_sweep_kernel(const Args<T, A> p) {
   T* nxt = bufA;  // u^{n+s-1}, overwritten by u^{n+s+1}
   for (int s = 0; s < TB; ++s) {
     const int gs = TB - 1 - s;
-    const Span cx = grow(ox0, ox1, gs, Nx), cy = grow(oy0, oy1, gs, Ny),
+    const Span cx = grow(ox0, ox1, gs, xl, xh), cy = grow(oy0, oy1, gs, Ny),
                cz = grow(oz0, oz1, gs, Nz);
 
     // (a) each active lossy node stashes u^{n+s-1} at itself
@@ -223,7 +250,7 @@ tb_sweep_kernel(const Args<T, A> p) {
       const int gz = cz.lo + i - t * nzb, gy = cy.lo + t - tx * nyb;
       const int gx = cx.lo + tx;
       const int c = ((gx - rx.lo) * Ry + (gy - ry.lo)) * Rz + (gz - rz.lo);
-      const bool xlo = gx == 1, xhi = gx == Nx - 2;
+      const bool xlo = gx + xo == 1, xhi = gx + xo == Nx - 2;
       const bool ylo = gy == 1, yhi = gy == Ny - 2;
       const bool zlo = gz == 1, zhi = gz == Nz - 2;
       const int ox[3] = {xlo ? sx : -sx, 0, xhi ? -sx : sx};
@@ -342,7 +369,10 @@ tb_sweep_kernel(const Args<T, A> p) {
 
 template <typename T, typename A, int NN, int TB>
 int launch_tb(const Args<T, A>& a, cudaStream_t stream) {
-  const long long ntx = (a.Nx - 2 + a.Bx - 1) / a.Bx;
+  constexpr bool SHARD = PF_TB_SHARD;
+  const int rows = SHARD ? a.xb - a.xa : a.Nx - 2;
+  if (rows < 1) return (int)cudaErrorInvalidValue;
+  const long long ntx = (rows + a.Bx - 1) / a.Bx;
   const long long nty = (a.Ny - 2 + a.By - 1) / a.By;
   const long long ntz = (a.Nz - 2 + a.Bz - 1) / a.Bz;
   if (ntx > 65535 || nty > 65535 || ntz > 2147483647LL)
@@ -350,11 +380,11 @@ int launch_tb(const Args<T, A>& a, cudaStream_t stream) {
   const size_t smem = (size_t)(a.Bx + 2 * TB) * (a.By + 2 * TB) *
                       (a.Bz + 2 * TB) * (2 * sizeof(T) + sizeof(A));
   cudaError_t e = cudaFuncSetAttribute(
-      tb_sweep_kernel<T, A, NN, TB>,
+      tb_sweep_kernel<T, A, NN, TB, SHARD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)ntz, (unsigned)nty, (unsigned)ntx);
-  tb_sweep_kernel<T, A, NN, TB><<<grid, kThreads, smem, stream>>>(a);
+  tb_sweep_kernel<T, A, NN, TB, SHARD><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -381,8 +411,14 @@ int run(int tb, const void* u0, const void* u1, const void* adj, void* out0,
         const void* mat, const void* coef, const void* beta,
         const void* vh_in, const void* gh_in, void* vh_out, void* gh_out,
         long long nbl, const void* src, const void* sig, int ns,
-        const void* rcv, void* taps, int nr, cudaStream_t stream) {
+        const void* rcv, void* taps, int nr, int xa, int xb, int xl, int xh,
+        int xo, cudaStream_t stream) {
   if (Nx < 5 || Ny < 5 || Nz < 5 || Bx < 1 || By < 1 || Bz < 1)
+    return (int)cudaErrorInvalidValue;
+  // shard mode: owned rows inside the computable ones, which are global
+  // interior rows
+  if (PF_TB_SHARD && (xa < xl || xb > xh || xa >= xb || xl < 0 ||
+                      xl + xo < 1 || xh + xo > Nx - 1))
     return (int)cudaErrorInvalidValue;
   Args<T, A> a;
   a.u0 = static_cast<const T*>(u0);
@@ -413,6 +449,7 @@ int run(int tb, const void* u0, const void* u1, const void* adj, void* out0,
   a.rcv = static_cast<const int*>(rcv);
   a.taps = static_cast<T*>(taps);
   a.nr = nr;
+  a.xa = xa; a.xb = xb; a.xl = xl; a.xh = xh; a.xo = xo;
   return dispatch_tb<T, A, NN>(tb, a, stream);
 }
 
@@ -422,25 +459,36 @@ int run(int tb, const void* u0, const void* u1, const void* adj, void* out0,
 // tb: 2..8 steps.  Bx, By, Bz: the owned tile box.  tl_*: int32 tile lists
 // (engine/data.py TileLists); src, rcv: int32 (n, 3) coordinates; sig:
 // (tb, ns); taps: (tb-2, nr) or NULL for tb = 2.  Returns cudaGetLastError().
-extern "C" int pf_tb_sweep(
-    int dtype, int nn, int tb, const void* u0, const void* u1,
-    const void* adj, void* out0, void* out1, int Nx, int Ny, int Nz,
-    int folded, int Bx, int By, int Bz, double a2, double sl2, double lQ1,
-    double lQ2, double lQ3, double l, double lo2, const void* tl_ptr,
-    const void* tl_node, const void* tl_off, const void* tl_ring,
-    const void* ssaf, const void* mat, const void* coef, const void* beta,
-    const void* vh_in, const void* gh_in, void* vh_out, void* gh_out,
-    long long nbl, const void* src, const void* sig, int ns, const void* rcv,
-    void* taps, int nr, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PF_TB_PARAMS                                                          \
+  int dtype, int nn, int tb, const void *u0, const void *u1,                 \
+      const void *adj, void *out0, void *out1, int Nx, int Ny, int Nz,       \
+      int folded, int Bx, int By, int Bz, double a2, double sl2, double lQ1, \
+      double lQ2, double lQ3, double l, double lo2, const void *tl_ptr,      \
+      const void *tl_node, const void *tl_off, const void *tl_ring,          \
+      const void *ssaf, const void *mat, const void *coef, const void *beta, \
+      const void *vh_in, const void *gh_in, void *vh_out, void *gh_out,      \
+      long long nbl, const void *src, const void *sig, int ns,               \
+      const void *rcv, void *taps, int nr
 #define PF_TB_ARGS                                                          \
   tb, u0, u1, adj, out0, out1, Nx, Ny, Nz, folded, Bx, By, Bz, a2, sl2, lQ1, \
       lQ2, lQ3, l, lo2, tl_ptr, tl_node, tl_off, tl_ring, ssaf, mat, coef,   \
-      beta, vh_in, gh_in, vh_out, gh_out, nbl, src, sig, ns, rcv, taps, nr, s
+      beta, vh_in, gh_in, vh_out, gh_out, nbl, src, sig, ns, rcv, taps, nr,  \
+      xa, xb, xl, xh, xo, s
+#if PF_TB_SHARD
+// K6: Nx is the global extent; owned local rows [xa, xb), computable local
+// rows [xl, xh), global row = local row + xo.
+extern "C" int pf_tb_sweep_shard(PF_TB_PARAMS, int xa, int xb, int xl,
+                                 int xh, int xo, void* stream) {
+#else
+extern "C" int pf_tb_sweep(PF_TB_PARAMS, void* stream) {
+  const int xa = 1, xb = Nx - 1, xl = 1, xh = Nx - 1, xo = 0;
+#endif
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && nn == 6) return run<float, uint8_t, 6>(PF_TB_ARGS);
   if (dtype == 0 && nn == 12) return run<float, uint16_t, 12>(PF_TB_ARGS);
   if (dtype == 1 && nn == 6) return run<double, uint8_t, 6>(PF_TB_ARGS);
   if (dtype == 1 && nn == 12) return run<double, uint16_t, 12>(PF_TB_ARGS);
-#undef PF_TB_ARGS
   return (int)cudaErrorInvalidValue;
 }
+#undef PF_TB_ARGS
+#undef PF_TB_PARAMS

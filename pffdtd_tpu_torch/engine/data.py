@@ -45,6 +45,43 @@ class GridSpec:
         return (self.Nx - 2) * (self.Ny - 2) * (self.Nz - 2)
 
 
+@dataclass
+class SlabSpec:
+    """An x-slab of a global grid, as the sharded engine holds it.
+
+    Local row i is global row i + xo.  The slab owns the S global rows
+    xo+G .. xo+G+S-1 (local rows G .. G+S-1), between G ghost rows a side
+    that carry the neighbours' rows, or the global halo and rows past it on
+    a slab at a global edge.  The single-device grid is the slab
+    (S, G, xo) = (Nx-2, 1, 0)."""
+
+    grid: GridSpec      # the global grid
+    S: int
+    G: int
+    xo: int
+
+    @property
+    def shape(self):
+        return (self.S + 2 * self.G, self.grid.Ny, self.grid.Nz)
+
+    @property
+    def x0(self) -> int:
+        """Global row of the first owned row."""
+        return self.xo + self.G
+
+    @property
+    def owned(self):
+        """[lo, hi) of the owned local rows."""
+        return self.G, self.G + self.S
+
+    @property
+    def computable(self):
+        """[lo, hi) of the local rows that are global interior rows: the
+        most a TB sweep may compute."""
+        return max(0, 1 - self.xo), min(self.S + 2 * self.G,
+                                        self.grid.Nx - 1 - self.xo)
+
+
 def mirror_index(ixyz, grid: GridSpec) -> np.ndarray:
     """Flat indices after the mirror halo flips: the point whose value a
     flipped grid holds at `ixyz` (identity on the interior)."""
@@ -93,34 +130,49 @@ class TileLists:
         return int(np.diff(self.ptr).max()) if self.ptr.size > 1 else 0
 
 
-def tile_bounds(t, B, N, grow):
+def tile_bounds(t, B, N, grow, span=None):
     """[lo, hi) of tile t's owned box (size B along an axis of N points)
-    grown by `grow`, clamped to the interior 1..N-2; works on arrays."""
-    o0 = 1 + np.asarray(t) * B
-    o1 = np.minimum(o0 + B, N - 1)
-    return np.maximum(o0 - grow, 1), np.minimum(o1 + grow, N - 1)
+    grown by `grow`, clamped to the interior 1..N-2; works on arrays.
+
+    span = (a0, a1, c0, c1): tiles cover [a0, a1) and grown boxes clamp to
+    [c0, c1) instead (a slab's x axis: its owned and computable rows)."""
+    a0, a1, c0, c1 = (1, N - 1, 1, N - 1) if span is None else span
+    o0 = a0 + np.asarray(t) * B
+    o1 = np.minimum(o0 + B, a1)
+    return np.maximum(o0 - grow, c0), np.minimum(o1 + grow, c1)
 
 
-def build_tile_lists(bnl_ixyz, grid: GridSpec, box, TB: int) -> TileLists:
+def build_tile_lists(bnl_ixyz, grid: GridSpec, box, TB: int,
+                     slab: SlabSpec | None = None) -> TileLists:
     """The CSR lists of `TileLists` for the nodes at flat indices bnl_ixyz
-    (all interior), tiles of `box` points and TB steps per sweep."""
+    (all interior), tiles of `box` points and TB steps per sweep.
+
+    With `slab`, the indices are local to the slab's (S + 2G, Ny, Nz)
+    layout, tiles cover its owned rows and the regions clamp to its
+    computable rows (K6): nodes of the ghost bands within TB-1 of the owned
+    rows enter the lists with ring > 0."""
     if not 2 <= TB <= 8:
         raise ValueError(f"TB={TB}: 2..8 steps per sweep")
-    N = np.array(grid.shape, np.int64)
+    N = np.array(grid.shape if slab is None else slab.shape, np.int64)
+    # per axis: tiles cover [a0, a1), grown boxes clamp to [c0, c1)
+    spans = [(1, n - 1, 1, n - 1) for n in N]
+    if slab is not None:
+        spans[0] = (*slab.owned, *slab.computable)
+    a0, a1, c0, c1 = (np.array(v, np.int64)[:, None] for v in zip(*spans))
     B = np.array(box, np.int64)
-    nt = -(-(N - 2) // B)
+    nt = -(-(a1[:, 0] - a0[:, 0]) // B)
     bnl = np.asarray(bnl_ixyz, np.int64)
     c = np.stack([bnl // (N[1] * N[2]), (bnl // N[2]) % N[1], bnl % N[2]])
-    if bnl.size and ((c < 1).any() or (c > (N - 2)[:, None]).any()):
-        raise ValueError("lossy nodes must lie in the interior")
+    if bnl.size and ((c < c0).any() or (c >= c1).any()):
+        raise ValueError("lossy nodes must lie in the computable interior")
     r = TB - 1
     # tiles whose owned box lies within r of the node, per axis
-    t_lo = np.maximum((c - 1 - r) // B[:, None], 0)
-    t_hi = np.minimum((c - 1 + r) // B[:, None], (nt - 1)[:, None])
+    t_lo = np.maximum((c - a0 - r) // B[:, None], 0)
+    t_hi = np.minimum((c - a0 + r) // B[:, None], (nt - 1)[:, None])
     span = (t_hi - t_lo + 1).max(1) if bnl.size else np.zeros(3, np.int64)
     tiles, nodes = [], []
     ids = np.arange(bnl.size, dtype=np.int64)
-    for d in np.ndindex(*(int(s) for s in span)):
+    for d in np.ndindex(*(max(int(s), 0) for s in span)):
         t = t_lo + np.array(d)[:, None]
         ok = (t <= t_hi).all(0)
         tiles.append(t[:, ok])
@@ -131,11 +183,14 @@ def build_tile_lists(bnl_ixyz, grid: GridSpec, box, TB: int) -> TileLists:
     ring = np.zeros(node.size, np.int64)
     off = np.zeros(node.size, np.int64)
     for a in range(3):
-        o0, o1 = tile_bounds(t[a], B[a], N[a], 0)
+        o0, o1 = tile_bounds(t[a], B[a], N[a], 0, spans[a])
         ring = np.maximum(ring, np.maximum(o0 - cn[a], cn[a] - (o1 - 1)))
-        r0, r1 = tile_bounds(t[a], B[a], N[a], TB)
+        r0, r1 = tile_bounds(t[a], B[a], N[a], TB, spans[a])
         off = off * (r1 - r0) + (cn[a] - r0)
-    assert (ring >= 0).all() and (ring <= r).all()
+    assert (ring >= 0).all()
+    # a partial last tile may take a node r+1 past its rows: drop those
+    keep = ring <= r
+    t, node, off, ring = t[:, keep], node[keep], off[keep], ring[keep]
     tid = (t[0] * nt[1] + t[1]) * nt[2] + t[2]
     order = np.lexsort((node, tid))
     ptr = np.zeros(int(nt.prod()) + 1, np.int64)

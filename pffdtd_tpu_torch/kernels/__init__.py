@@ -1,5 +1,7 @@
-"""Hand-written CUDA kernels of the single-step path, each beside its plain
-PyTorch version: K1 `stencil.stencil_step`, K2 `boundary.boundary_update`.
+"""Hand-written CUDA kernels, each beside its plain PyTorch version: K1
+`stencil.stencil_step`, K2 `boundary.boundary_update`, K3 `tb.tb_sweep`, K4
+`stream.stream`, and the x-slab shard modes K5
+`stencil.stencil_step_shard` and K6 `tb.tb_sweep_shard`.
 
 Importing this package builds nothing: the CUDA library is compiled on the
 first launch on a CUDA tensor (`_build.library`)."""

@@ -1,10 +1,11 @@
 """Build the CUDA sources with nvcc and load them with ctypes.
 
-All of `pffdtd_tpu_torch/csrc/*.cu` compile, in one nvcc call, into one
-shared library with a plain C interface under `pffdtd_tpu_torch/_build/`
-(listed in .gitignore).  The library's name carries a hash of the sources
-and flags, so a checkout builds on first use and reuses the build after.
-No PyTorch header is included, which keeps the build to seconds.
+Each of `pffdtd_tpu_torch/csrc/*.cu` compiles in its own nvcc process, all
+started together, and the objects link into one shared library with a
+plain C interface under `pffdtd_tpu_torch/_build/` (listed in .gitignore).
+The library's name carries a hash of the sources and flags, so a checkout
+builds on first use and reuses the build after.  No PyTorch header is
+included, which keeps the build to seconds.
 
 `-fmad=false` keeps nvcc from contracting a*b+c into one FMA: each kernel
 then rounds every operation as its plain PyTorch version does, and the two
@@ -24,9 +25,9 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-fmad=false", "-Xptxas", "-v"]
 
 _vp, _i, _ll, _d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_double)
@@ -36,6 +37,10 @@ SIGNATURES = {
     # a2, sl2, lQ1, lQ2, lQ3, stream
     "pf_stencil_step": [_i, _i, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
                         _d, _d, _d, _d, _d, _vp],
+    # dtype, nn, u0, u1, adj, out, Nx (global), Ny, Nz, folded, G, S, xo,
+    # a2, sl2, lQ1, lQ2, lQ3, stream
+    "pf_stencil_step_shard": [_i, _i, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
+                              _i, _i, _i, _d, _d, _d, _d, _d, _vp],
     # dtype, unew, u0, bnl, ssaf, mat, coef, beta, vh, gh, nbl, l, lo2,
     # stream
     "pf_boundary_update": [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
@@ -48,6 +53,14 @@ SIGNATURES = {
                     _i, _i, _i, _d, _d, _d, _d, _d, _d, _d, _vp, _vp, _vp,
                     _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _vp,
                     _vp, _i, _vp, _vp, _i, _vp],
+    # pf_tb_sweep's arguments up to nr (Nx the global extent), then the
+    # local x ranges: owned rows [xa, xb), computable rows [xl, xh), the
+    # offset xo, and the stream
+    "pf_tb_sweep_shard": [_i, _i, _i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
+                          _i, _i, _i, _i, _d, _d, _d, _d, _d, _d, _d, _vp,
+                          _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                          _vp, _ll, _vp, _vp, _i, _vp, _vp, _i, _i, _i, _i,
+                          _i, _i, _vp],
     # mode (0 read, 1 write, 2 copy), x, y, n, value, partial, out, stream
     "pf_stream": [_i, _vp, _vp, _ll, _d, _vp, _vp, _vp],
     # () -> blocks each pf_stream mode launches
@@ -98,12 +111,27 @@ def library() -> KernelLibrary:
     log = ""
     if not so.exists():
         BUILD.mkdir(parents=True, exist_ok=True)
+        tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+        nvcc = _nvcc()
+        objs = [BUILD / f"{p.stem}.{tag}.o" for p in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(p)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(srcs, objs)]
+        outs = [(p, pr.communicate()[0], pr.returncode)
+                for p, pr in zip(srcs, procs)]
+        log = "".join(out for _, out, _ in outs)
+        bad = [f"{p.name} ({rc})" for p, _, rc in outs if rc != 0]
+        if bad:
+            raise RuntimeError(f"nvcc failed on {', '.join(bad)}:\n{log}")
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        log = r.stdout + r.stderr
+        r = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                            *map(str, objs)], capture_output=True, text=True)
+        for o in objs:
+            o.unlink(missing_ok=True)
         if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stdout}{r.stderr}")
         os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
     _LIB = KernelLibrary(so, time.perf_counter() - t0, log)
     return _LIB

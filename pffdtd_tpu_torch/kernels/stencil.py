@@ -1,4 +1,4 @@
-"""K1, the fused stencil step, and its plain PyTorch version.
+"""K1, the fused stencil step, K5, its shard mode, and their plain versions.
 
 `stencil_step` launches the CUDA kernel of `csrc/stencil.cu` for tensors on
 the card, and runs `stencil_step_plain` for tensors on the CPU.  Both compute,
@@ -12,6 +12,11 @@ lossy ODE and the sources (K2 and the engine do those):
 
 The halo layers of `out` are left as they were: every step mirrors them
 afresh from interior data, so they are never read.
+
+`stencil_step_shard` (K5, the same source in shard mode) and
+`stencil_step_shard_plain` compute the same step on the owned rows of one
+x-slab (`engine.data.SlabSpec`), the counterpart of
+`pffdtd_tpu/engine/pallas_stencil.py` `build_fused_stencil_sharded`.
 """
 
 from __future__ import annotations
@@ -49,8 +54,10 @@ def abc_regions(grid):
     return regions
 
 
-def _check(u0, u1, adj, out, grid):
-    shape = tuple(grid.shape)
+def _check(u0, u1, adj, out, grid, shape=None):
+    """Checks a step's tensors; `shape` is the slab's (default the grid's).
+    Returns the leg count."""
+    shape = tuple(grid.shape if shape is None else shape)
     for name, t in (("u0", u0), ("u1", u1), ("out", out)):
         if t.dtype not in (torch.float32, torch.float64) \
                 or t.dtype != u1.dtype:
@@ -65,14 +72,19 @@ def _check(u0, u1, adj, out, grid):
         raise ValueError(f"adj: want a contiguous {shape} {adt} grid")
     if len({t.device for t in (u0, u1, adj, out)}) != 1:
         raise ValueError("u0, u1, adj and out must share one device")
-    if min(shape) < 5:
-        raise ValueError(f"grid {shape}: every extent must be >= 5")
+    if min(grid.shape) < 5:
+        raise ValueError(f"grid {grid.shape}: every extent must be >= 5")
     if shape[1] * shape[2] + shape[2] + 1 > 2**31 - 1:
         raise ValueError(f"grid {shape}: a (y, z) plane must hold < 2**31 "
                          "points (K1 offsets are 32-bit)")
     if len({u0.data_ptr(), u1.data_ptr(), out.data_ptr()}) != 3:
         raise ValueError("out must be a third buffer, distinct from u0, u1")
     return nn
+
+
+def _launch_args(u0, u1, adj, out, nn):
+    return (0 if u1.dtype == torch.float32 else 1, nn, u0.data_ptr(),
+            u1.data_ptr(), adj.data_ptr(), out.data_ptr())
 
 
 def stencil_step(u0, u1, adj, out, grid, sc):
@@ -88,8 +100,7 @@ def stencil_step(u0, u1, adj, out, grid, sc):
     lib = _build.library()
     Nx, Ny, Nz = grid.shape
     rc = lib.pf_stencil_step(
-        0 if u1.dtype == torch.float32 else 1, nn, u0.data_ptr(),
-        u1.data_ptr(), adj.data_ptr(), out.data_ptr(), Nx, Ny, Nz,
+        *_launch_args(u0, u1, adj, out, nn), Nx, Ny, Nz,
         int(grid.folded), sc.a2, sc.sl2, sc.l * 1, sc.l * 2, sc.l * 3,
         torch.cuda.current_stream(u1.device).cuda_stream)
     _build.check(rc, "stencil_step")
@@ -102,32 +113,103 @@ stencil_step.launches = 0
 
 def stencil_step_plain(u0, u1, adj, out, grid, sc):
     """Shifted-slice PyTorch version of K1 (same signature and result)."""
+    return stencil_rows_plain(u0, u1, adj, out, grid, sc, 0, 1,
+                              grid.Nx - 1)
+
+
+def _check_slab(slab):
+    g = slab.grid
+    if not (slab.G >= 1 and slab.S >= 1 and slab.x0 >= 1
+            and slab.x0 + slab.S <= g.Nx - 1):
+        raise ValueError(f"slab S={slab.S}, G={slab.G}, xo={slab.xo}: the "
+                         f"owned rows must be global interior rows of "
+                         f"Nx={g.Nx}")
+
+
+def stencil_step_shard(u0, u1, adj, out, slab, sc):
+    """One K5 step: K1 on the owned rows of an x-slab; returns `out`.
+
+    u0, u1, adj, out: (S + 2G, Ny, Nz) slab tensors (`slab.shape`) whose
+    ghost rows hold the neighbours' rows; slab: engine.data.SlabSpec.  The
+    x mirror and the ABC's x faces act only where the slab owns global row
+    1 or Nx-2; rows outside the owned ones are not written."""
+    _check_slab(slab)
+    nn = _check(u0, u1, adj, out, slab.grid, slab.shape)
+    if u1.device.type == "cpu":
+        return stencil_step_shard_plain(u0, u1, adj, out, slab, sc)
+    if u1.device.type != "cuda":
+        raise ValueError(f"device {u1.device}: cpu or cuda only")
+    lib = _build.library()
+    g = slab.grid
+    rc = lib.pf_stencil_step_shard(
+        *_launch_args(u0, u1, adj, out, nn), g.Nx, g.Ny, g.Nz,
+        int(g.folded), slab.G, slab.S, slab.xo, sc.a2, sc.sl2, sc.l * 1,
+        sc.l * 2, sc.l * 3, torch.cuda.current_stream(u1.device).cuda_stream)
+    _build.check(rc, "stencil_step_shard")
+    stencil_step_shard.launches += 1
+    return out
+
+
+stencil_step_shard.launches = 0
+
+
+def stencil_step_shard_plain(u0, u1, adj, out, slab, sc):
+    """PyTorch version of K5 (same signature and result)."""
+    _check_slab(slab)
+    lo, hi = slab.owned
+    return stencil_rows_plain(u0, u1, adj, out, slab.grid, sc, slab.xo, lo,
+                              hi)
+
+
+def _local_x(ix, xo, r0, r1):
+    """A region's x part (a global row or slice) on local rows [r0, r1) of
+    a slab whose local row i is global row i + xo; None if it misses."""
+    if isinstance(ix, slice):
+        lo, hi = max(ix.start - xo, r0), min(ix.stop - xo, r1)
+        return slice(lo, hi) if lo < hi else None
+    return ix - xo if r0 <= ix - xo < r1 else None
+
+
+def stencil_rows_plain(u0, u1, adj, out, grid, sc, xo, r0, r1):
+    """K1's step on the local rows [r0, r1) of a slab whose local row i is
+    global row i + xo (grid: the global GridSpec; rows r0-1 and r1 must
+    exist).  The whole grid is the slab xo = 0, rows [1, Nx-1).
+
+    Each point's operations are the same, in the same order, whatever the
+    slab, so slabs and the whole grid agree bit for bit."""
     Nx, Ny, Nz = grid.shape
+    n = u1.shape[0]
     dt = u1.dtype
     u1f = u1.clone()
     u1f[:, :, 0] = u1f[:, :, 2]
     u1f[:, :, Nz - 1] = u1f[:, :, Nz - 3]
     u1f[:, 0, :] = u1f[:, 2, :]
     u1f[:, Ny - 1, :] = u1f[:, Ny - 2 if grid.folded else Ny - 3, :]
-    u1f[0] = u1f[2]
-    u1f[Nx - 1] = u1f[Nx - 3]
+    if 0 <= -xo < n:                     # global row 0 mirrors row 2
+        u1f[-xo] = u1f[2 - xo]
+    if 0 <= Nx - 1 - xo < n:             # global row Nx-1 mirrors Nx-3
+        u1f[Nx - 1 - xo] = u1f[Nx - 3 - xo]
 
-    interior = (slice(1, Nx - 1), slice(1, Ny - 1), slice(1, Nz - 1))
+    rows = (slice(r0, r1), slice(1, Ny - 1), slice(1, Nz - 1))
     # torch has no >> for uint16 on the CPU: unpack from an int32 copy
-    a = adj[interior].to(torch.int32)
+    a = adj[rows].to(torch.int32)
     VV = (FCC_VECTORS if grid.fcc_flag else CART_VECTORS).astype(np.int64)
     acc = K = None
     for k, (dx, dy, dz) in enumerate(VV):
         bit = ((a >> k) & 1).to(dt)
-        t = bit * u1f[1 + dx:Nx - 1 + dx, 1 + dy:Ny - 1 + dy,
+        t = bit * u1f[r0 + dx:r1 + dx, 1 + dy:Ny - 1 + dy,
                       1 + dz:Nz - 1 + dz]
         acc = t if acc is None else acc + t
         K = bit if K is None else K + bit
     sl2 = _as_dtype(sc.sl2, dt)
     a2 = _as_dtype(sc.a2, dt)
-    out[interior] = (2.0 - sl2 * K) * u1f[interior] - u0[interior] + a2 * acc
+    out[rows] = (2.0 - sl2 * K) * u1f[rows] - u0[rows] + a2 * acc
     del a, acc, K, u1f
-    for sl, Q in abc_regions(grid):
+    for (ix, iy, iz), Q in abc_regions(grid):
+        lx = _local_x(ix, xo, r0, r1)
+        if lx is None:
+            continue
+        sl = (lx, iy, iz)
         lQ = _as_dtype(sc.l * Q, dt)
         # a tensor divisor: PyTorch's CUDA division by a Python scalar
         # multiplies by its reciprocal, which rounds differently from K1

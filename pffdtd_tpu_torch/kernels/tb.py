@@ -12,6 +12,13 @@ u^{n+TB-2} go into `taps`, a (TB-2, Nr) view (None for TB = 2).
 It replaces pffdtd_tpu/engine/pallas_pair.py `build_fused_pair` (TB = 2)
 and pallas_tb.py `build_fused_tb` (TB = 2..8), single-device mode.
 
+`tb_sweep_shard` (K6, the same source in shard mode, `csrc/tb_shard.cu`)
+and `tb_sweep_shard_plain` run the sweep on one x-slab of the sharded
+engine (a `TBScene` made by `TBScene.make_slab`), the counterpart of
+`build_fused_pair(shard=)` generalised to TB = 2..8: the owned rows end the
+sweep at step n+TB, the ghost rows feed the halo ring, and only the owned
+nodes' branch states are written.
+
 Race rule: no output aliases an input.  A tile of the kernel reads its
 neighbours' start-of-sweep fields and branch states while their owners
 write end-of-sweep values, so the caller rotates four field buffers and
@@ -25,12 +32,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from pffdtd_tpu_torch.engine.data import (GridSpec, TileLists,
+from pffdtd_tpu_torch.engine.data import (GridSpec, SlabSpec, TileLists,
                                           build_tile_lists, mirror_index)
 from pffdtd_tpu_torch.io.simdata import MMb
 from pffdtd_tpu_torch.kernels import _build
 from pffdtd_tpu_torch.kernels.boundary import boundary_update_plain
-from pffdtd_tpu_torch.kernels.stencil import stencil_step_plain
+from pffdtd_tpu_torch.kernels.stencil import (stencil_rows_plain,
+                                              stencil_step_plain)
 
 THREADS = 256          # kThreads in csrc/tb.cu
 PER_THREAD = 4         # kMaxPer in csrc/tb.cu: lossy-list entries a thread
@@ -50,24 +58,26 @@ def smem_bytes(box, TB: int, itemsize: int, adj_itemsize: int) -> int:
     return n * (2 * itemsize + adj_itemsize)
 
 
-def plan_tiles(grid: GridSpec, TB: int, itemsize: int,
-               bnl_ixyz) -> TileLists:
-    """The first box of TILES that fits, with its lossy lists."""
+def plan_tiles(grid: GridSpec, TB: int, itemsize: int, bnl_ixyz,
+               slab: SlabSpec | None = None) -> TileLists:
+    """The first box of TILES that fits, with its lossy lists (of a slab's
+    local node indices when `slab` is given)."""
     if not 2 <= TB <= 8:
         raise ValueError(f"TB={TB}: 2..8 steps per sweep")
     adj_itemsize = 2 if grid.fcc_flag else 1
     for box in TILES:
         if smem_bytes(box, TB, itemsize, adj_itemsize) > SMEM_LIMIT:
             continue
-        tl = build_tile_lists(bnl_ixyz, grid, box, TB)
+        tl = build_tile_lists(bnl_ixyz, grid, box, TB, slab)
         if tl.max_per_tile <= MAX_NODES:
             return tl
     raise ValueError(f"no tile box fits TB={TB}: a tile holds more than "
                      f"{MAX_NODES} lossy nodes")
 
 
-def _xyz(ixyz, grid: GridSpec) -> np.ndarray:
-    """(n, 3) int32 coordinates of flat indices."""
+def _xyz(ixyz, grid) -> np.ndarray:
+    """(n, 3) int32 coordinates of flat indices (grid: anything with the
+    grid's or a slab's `shape`)."""
     ixyz = np.asarray(ixyz, np.int64)
     Nx, Ny, Nz = grid.shape
     return np.ascontiguousarray(np.stack(
@@ -80,7 +90,9 @@ class TBScene:
 
     The plain version reads the engine's arrays (adj .. out_ixyz_f); the
     kernel reads the tile lists and the sources' and mirrored receivers'
-    (n, 3) coordinates instead of flat indices."""
+    (n, 3) coordinates instead of flat indices.  A slab's scene (`slab` set)
+    holds local indices and coordinates: the nodes and sources within TB-1
+    rows of its owned rows, and its owned receivers."""
 
     grid: GridSpec
     sc: object
@@ -100,6 +112,11 @@ class TBScene:
     tl_ring: torch.Tensor
     src_xyz: torch.Tensor
     rcv_xyz: torch.Tensor
+    slab: SlabSpec | None = None
+
+    @property
+    def shape(self):
+        return tuple((self.grid if self.slab is None else self.slab).shape)
 
     @classmethod
     def make(cls, data, TB: int, *, adj, bnl, ssaf, mat, coef_table, beta,
@@ -124,13 +141,37 @@ class TBScene:
                    src_xyz=up(_xyz(data.in_ixyz, g)),
                    rcv_xyz=up(_xyz(mirror_index(data.out_ixyz, g), g)))
 
+    @classmethod
+    def make_slab(cls, slab: SlabSpec, sc, TB: int, itemsize: int, *, adj,
+                  bnl, ssaf, mat, coef_table, beta, in_ixyz, out_ixyz_f):
+        """A slab's scene from its device tensors, all indices local to
+        `slab.shape` (bnl and in_ixyz: the nodes and sources within TB-1 of
+        the owned rows; out_ixyz_f: the owned receivers, mirrored); plans
+        the tiles."""
+        lists = plan_tiles(slab.grid, TB, itemsize, bnl.cpu().numpy(), slab)
+        if slab.S < 2 * TB:
+            raise ValueError(f"slab of S={slab.S} rows: K6 needs >= 2*TB")
+        dev = adj.device
+
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        return cls(grid=slab.grid, sc=sc, TB=TB, lists=lists, adj=adj,
+                   bnl=bnl, ssaf=ssaf, mat=mat, coef_table=coef_table,
+                   beta=beta, in_ixyz=in_ixyz, out_ixyz_f=out_ixyz_f,
+                   tl_ptr=up(lists.ptr), tl_node=up(lists.node),
+                   tl_off=up(lists.off), tl_ring=up(lists.ring),
+                   src_xyz=up(_xyz(in_ixyz.cpu().numpy(), slab)),
+                   rcv_xyz=up(_xyz(out_ixyz_f.cpu().numpy(), slab)),
+                   slab=slab)
+
 
 def _check(st: TBScene, u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out,
            sig, taps):
     TB = st.TB
     if not 2 <= TB <= 8:
         raise ValueError(f"TB={TB}: 2..8 steps per sweep")
-    shape = tuple(st.grid.shape)
+    shape = st.shape
     dt = u1.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"u1: dtype {dt}, want float32/float64")
@@ -174,16 +215,32 @@ def tb_sweep(st: TBScene, u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out,
 
     sig: (TB, Ns) source samples already divided by infac; taps: the
     (TB-2, Nr) rows for u^{n+1} .. u^{n+TB-2}, or None when TB = 2."""
+    if st.slab is not None:
+        raise ValueError("a slab's scene: use tb_sweep_shard")
     _check(st, u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out, sig, taps)
     if u1.device.type == "cpu":
         return tb_sweep_plain(st, u0, u1, out0, out1, vh_in, gh_in, vh_out,
                               gh_out, sig, taps)
     if u1.device.type != "cuda":
         raise ValueError(f"device {u1.device}: cpu or cuda only")
-    lib = _build.library()
+    rc = _build.library().pf_tb_sweep(
+        *_launch_args(st, u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out,
+                      sig, taps),
+        torch.cuda.current_stream(u1.device).cuda_stream)
+    _build.check(rc, "tb_sweep")
+    tb_sweep.launches += 1
+    return out0, out1
+
+
+tb_sweep.launches = 0
+
+
+def _launch_args(st, u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out, sig,
+                 taps):
+    """The arguments K3 and K6 share, up to the number of receivers."""
     g, sc, tl = st.grid, st.sc, st.lists
     Nx, Ny, Nz = g.shape
-    rc = lib.pf_tb_sweep(
+    return (
         0 if u1.dtype == torch.float32 else 1, 12 if g.fcc_flag else 6,
         st.TB, u0.data_ptr(), u1.data_ptr(), st.adj.data_ptr(),
         out0.data_ptr(), out1.data_ptr(), Nx, Ny, Nz, int(g.folded),
@@ -195,14 +252,37 @@ def tb_sweep(st: TBScene, u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out,
         st.bnl.numel(), st.src_xyz.data_ptr(), sig.data_ptr(),
         st.in_ixyz.numel(), st.rcv_xyz.data_ptr(),
         taps.data_ptr() if taps is not None else None,
-        st.out_ixyz_f.numel(),
+        st.out_ixyz_f.numel())
+
+
+def tb_sweep_shard(st: TBScene, u0, u1, out0, out1, vh_in, gh_in, vh_out,
+                   gh_out, sig, taps=None):
+    """One K6 sweep of st.TB steps over a slab; returns (out0, out1).
+
+    As `tb_sweep`, on a slab's scene: u0, u1 carry the neighbours' rows in
+    their TB ghost rows a side; out0, out1 receive the owned rows of
+    u^{n+TB-1}, u^{n+TB}; vh_out, gh_out the owned nodes' states (the
+    ghost-band slots are not written)."""
+    if st.slab is None:
+        raise ValueError("not a slab's scene: use tb_sweep")
+    _check(st, u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out, sig, taps)
+    if u1.device.type == "cpu":
+        return tb_sweep_shard_plain(st, u0, u1, out0, out1, vh_in, gh_in,
+                                    vh_out, gh_out, sig, taps)
+    if u1.device.type != "cuda":
+        raise ValueError(f"device {u1.device}: cpu or cuda only")
+    sl = st.slab
+    rc = _build.library().pf_tb_sweep_shard(
+        *_launch_args(st, u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out,
+                      sig, taps),
+        *sl.owned, *sl.computable, sl.xo,
         torch.cuda.current_stream(u1.device).cuda_stream)
-    _build.check(rc, "tb_sweep")
-    tb_sweep.launches += 1
+    _build.check(rc, "tb_sweep_shard")
+    tb_sweep_shard.launches += 1
     return out0, out1
 
 
-tb_sweep.launches = 0
+tb_sweep_shard.launches = 0
 
 
 def tb_sweep_plain(st: TBScene, u0, u1, out0, out1, vh_in, gh_in, vh_out,
@@ -226,4 +306,42 @@ def tb_sweep_plain(st: TBScene, u0, u1, out0, out1, vh_in, gh_in, vh_out,
         if s < TB - 2:
             torch.index_select(dst.view(-1), 0, st.out_ixyz_f, out=taps[s])
         prev, cur = cur, dst
+    return out0, out1
+
+
+def tb_sweep_shard_plain(st: TBScene, u0, u1, out0, out1, vh_in, gh_in,
+                         vh_out, gh_out, sig, taps=None):
+    """PyTorch version of K6 (same signature and result).
+
+    Step s computes the rows within TB-1-s of the owned ones (clamped to
+    the computable rows), as the kernel's shrinking step boxes do along x,
+    with the lossy nodes and sources on those rows; the buffers cycle as in
+    `tb_sweep_plain`.  Only the owned nodes' states reach vh_out, gh_out."""
+    TB, sl = st.TB, st.slab
+    xa, xb = sl.owned
+    xl, xh = sl.computable
+    plane = sl.grid.Ny * sl.grid.Nz
+    node_x = st.bnl // plane
+    src_x = st.in_ixyz // plane
+    vh, gh = vh_in.clone(), gh_in.clone()
+    bufs = (out1, out0, torch.empty_like(u1) if TB > 2 else None)
+    prev, cur = u0, u1
+    for s in range(TB):
+        r0, r1 = max(xa - (TB - 1 - s), xl), min(xb + TB - 1 - s, xh)
+        dst = bufs[(TB - 1 - s) % 3]
+        stencil_rows_plain(prev, cur, st.adj, dst, st.grid, st.sc, sl.xo, r0,
+                           r1)
+        i = torch.nonzero((node_x >= r0) & (node_x < r1))[:, 0]
+        v, g = vh[:, i].contiguous(), gh[:, i].contiguous()
+        boundary_update_plain(dst, prev, st.bnl[i], st.ssaf[i], st.mat[i],
+                              st.coef_table, st.beta, v, g, st.sc)
+        vh[:, i], gh[:, i] = v, g
+        m = (src_x >= r0) & (src_x < r1)
+        dst.view(-1).index_add_(0, st.in_ixyz[m], sig[s][m])
+        if s < TB - 2:
+            torch.index_select(dst.view(-1), 0, st.out_ixyz_f, out=taps[s])
+        prev, cur = cur, dst
+    own = (node_x >= xa) & (node_x < xb)
+    vh_out[:, own] = vh[:, own]
+    gh_out[:, own] = gh[:, own]
     return out0, out1

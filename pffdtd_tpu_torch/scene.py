@@ -3,7 +3,8 @@
 Counterparts, held array-for-array equal to the originals:
 - `synthetic_box_sim`   pffdtd_tpu/demo.py `synthetic_box_sim`
 - `mats_from_DEF_list`  pffdtd_tpu/scene_setup.py `mats_from_DEF_list`
-- `rotate_sim`, `fold_fcc_sim`, `sort_sim`  pffdtd_tpu/prep.py
+- `rotate_sim`, `fold_fcc_sim`, `sort_sim`, `pad_x_interior`
+                        pffdtd_tpu/prep.py
 
 The originals import `h5py` at module level (through `pffdtd_tpu.io.h5`),
 which the card's machine may lack.  The grid, constants and source/receiver
@@ -235,3 +236,18 @@ def sort_sim(sim: SimData) -> SimData:
         out_ixyz=comms.out_ixyz[kk],
         out_reorder=np.argsort(kk, kind="stable")[comms.out_reorder])
     return replace(sim, vox=vox2, comms=comms2)
+
+
+def pad_x_interior(sim: SimData, D: int) -> SimData:
+    """Pad the grid's x extent so its interior rows split into D equal
+    x-slabs ((Nx - 2) % D == 0), with exterior air past the high-x wall:
+    the new rows carry no boundary node and stay decoupled from the room
+    (prep.py `pad_x_interior` with interior=True)."""
+    vox = sim.vox
+    rem = (vox.Nx - 2) % D
+    if not rem:
+        return sim
+    add = D - rem
+    return replace(sim, vox=replace(
+        vox, Nx=vox.Nx + add,
+        xv=np.r_[vox.xv, vox.xv[-1] + vox.h * np.arange(1, add + 1)]))

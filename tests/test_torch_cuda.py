@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K4 vs their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K6 vs their plain PyTorch versions, on the card.
 
 Marked `cuda`; each test skips, inside the `cuda` fixture, where
 torch.cuda.is_available() is False (a CUDA kernel has no CPU mode; its plain
@@ -11,7 +11,9 @@ contraction, so only summation order may differ), fp64 <= 1e-12, and whole
 runs on the kernel path vs the plain path <= 1e-12 in fp64.  K3 repeats K1
 and K2's arithmetic per step, so one sweep is held to the same bounds; K4's
 copy and fill are exact and its float64 sum agrees with PyTorch's to 1e-12
-of the sum of |x|.
+of the sum of |x|.  K5 and K6 (the shard modes of K1 and K3) are held to the
+same bounds on every slab of a split, and the sharded engine's kernel
+routes to the single-device plain path in fp64.
 """
 
 import numpy as np
@@ -24,8 +26,13 @@ from pffdtd_tpu_torch.kernels.boundary import (boundary_update,
                                                boundary_update_plain)
 from pffdtd_tpu_torch.kernels.stencil import stencil_step, stencil_step_plain
 from pffdtd_tpu_torch.kernels.stream import stream, stream_plain
-from pffdtd_tpu_torch.kernels.tb import tb_sweep, tb_sweep_plain
-from pffdtd_tpu_torch.scene import fold_fcc_sim, sort_sim, synthetic_box_sim
+from pffdtd_tpu_torch.kernels.stencil import (stencil_step_shard,
+                                              stencil_step_shard_plain)
+from pffdtd_tpu_torch.kernels.tb import (tb_sweep, tb_sweep_plain,
+                                         tb_sweep_shard, tb_sweep_shard_plain)
+from pffdtd_tpu_torch.parallel.sharded_engine import make_sharded_engine
+from pffdtd_tpu_torch.scene import (fold_fcc_sim, pad_x_interior, sort_sim,
+                                    synthetic_box_sim)
 
 pytestmark = pytest.mark.cuda
 
@@ -44,14 +51,24 @@ def cuda():
     return torch.device("cuda")
 
 
-def _engine(name, dtype, **kw):
+def _sim(name):
     box, h, fcc, fold = CASES[name]
     sim = synthetic_box_sim(*box, h=h, Nt=30, fcc=fcc, lossy=True,
                             insig_type="hann10", diff_source=False)
-    if fold:
-        sim = sort_sim(fold_fcc_sim(sim))
+    return sort_sim(fold_fcc_sim(sim)) if fold else sim
+
+
+def _engine(name, dtype, **kw):
+    sim = _sim(name)
     return TorchEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
                        mats=sim.mats, dtype=dtype, device="cuda", **kw)
+
+
+def _sharded(name, dtype, D, **kw):
+    sim = _sim(name)
+    return make_sharded_engine(consts=sim.consts, vox=sim.vox,
+                               comms=sim.comms, mats=sim.mats,
+                               devices=["cuda"] * D, dtype=dtype, **kw)
 
 
 def _rel(a, b):
@@ -169,3 +186,79 @@ def test_stream_matches_plain(cuda, n):
     assert torch.equal(y, stream_plain("write", y=y2, value=2.5))
     torch.cuda.synchronize()
     assert stream.launches == n0 + 3
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("name", list(CASES))
+def test_stencil_step_shard_matches_plain(cuda, name, dtype):
+    eng = _sharded(name, dtype, 4, backend="step")
+    rng = np.random.default_rng(2)
+    t = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(dtype)).to(cuda)
+    for sh in eng.shards:          # first, middle and last slabs
+        sl = sh.slab
+        u0, u1 = t(*sl.shape), t(*sl.shape)
+        a = torch.full_like(u0, float("nan"))
+        b = a.clone()
+        n = stencil_step_shard.launches
+        stencil_step_shard(u0, u1, sh.adj, a, sl, eng.data.sc)
+        stencil_step_shard_plain(u0, u1, sh.adj, b, sl, eng.data.sc)
+        torch.cuda.synchronize()
+        assert stencil_step_shard.launches == n + 1
+        own = (slice(*sl.owned), slice(1, -1), slice(1, -1))
+        assert torch.isfinite(a[own]).all()
+        assert _rel(a[own], b[own]) <= TOL[dtype]
+        assert torch.isnan(a[:sl.G]).all() and torch.isnan(a[-sl.G:]).all()
+
+
+@pytest.mark.parametrize("TB", [2, 3])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("name", list(CASES))
+def test_tb_sweep_shard_matches_plain(cuda, name, dtype, TB):
+    eng = _sharded(name, dtype, 2, backend="tb", tb=TB)
+    rng = np.random.default_rng(3)
+    t = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(dtype)).to(cuda)
+    for sh in eng.shards:
+        st, sl = sh.tb_scene, sh.slab
+        nbl = sh.bnl.numel()
+        u0, u1 = t(*sl.shape), t(*sl.shape)
+        vh, gh = t(MMb, nbl), t(MMb, nbl)
+        sig = t(TB, st.in_ixyz.numel())
+        nr = st.out_ixyz_f.numel()
+        outs = []
+        for fn in (tb_sweep_shard, tb_sweep_shard_plain):
+            o = [torch.full_like(u0, float("nan")) for _ in range(2)]
+            s2 = [torch.full_like(vh, float("nan")) for _ in range(2)]
+            taps = torch.full((TB - 2, nr), float("nan"), dtype=u0.dtype,
+                              device=cuda) if TB > 2 else None
+            n = tb_sweep_shard.launches
+            fn(st, u0, u1, *o, vh, gh, *s2, sig, taps)
+            torch.cuda.synchronize()
+            assert tb_sweep_shard.launches == n + (fn is tb_sweep_shard)
+            outs.append(o + s2 + ([taps] if TB > 2 else []))
+        own = (slice(*sl.owned), slice(1, -1), slice(1, -1))
+        mine = torch.from_numpy(sh.part.node_own).to(cuda)
+        for b2 in outs[0][2:4]:      # the owners write the ghost-band slots
+            assert torch.isnan(b2[:, ~mine]).all()
+        for i, (a, b) in enumerate(zip(*outs)):
+            a, b = (a[own], b[own]) if i < 2 else \
+                (a[:, mine], b[:, mine]) if i < 4 else (a, b)
+            assert torch.isfinite(a).all()
+            if b.numel():
+                assert _rel(a, b) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("backend", ["step", "pair", "tb"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_sharded_routes_match_plain_path_fp64(cuda, name, backend):
+    for D in (2, 4):
+        sim = pad_x_interior(_sim(name), D)   # the grid the engine runs
+        up = TorchEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
+                         mats=sim.mats, dtype=np.float64, device="cuda",
+                         backend="step", use_kernels=False).run(
+                             nt=29, verbose=False)
+        uk = _sharded(name, np.float64, D, backend=backend).run(
+            nt=29, verbose=False)
+        assert np.abs(up).max() > 0
+        assert np.abs(uk - up).max() / np.abs(up).max() <= 1e-12

@@ -157,6 +157,7 @@ import pffdtd_tpu_torch.engine.torch_engine
 import pffdtd_tpu_torch.io.h5
 import pffdtd_tpu_torch.kernels.stream
 import pffdtd_tpu_torch.kernels.tb
+import pffdtd_tpu_torch.parallel.partition
 import pffdtd_tpu_torch.scene
 from pffdtd_tpu_torch.engine.torch_engine import TorchEngine
 from pffdtd_tpu_torch.scene import fold_fcc_sim, synthetic_box_sim
@@ -170,6 +171,17 @@ for backend in ("step", "tb"):
     assert u.shape == (sim.comms.Nr, 10) and np.isfinite(u).all()
     assert float(eng.state[1].abs().max()) > 0
 assert eng.TB == 3
+from pffdtd_tpu_torch.parallel.sharded_engine import make_sharded_engine
+from pffdtd_tpu_torch.scene import pad_x_interior
+ps = pad_x_interior(sim, 2)          # the grid the two slabs run
+for backend in ("step", "tb"):
+    ref = TorchEngine(consts=ps.consts, vox=ps.vox, comms=ps.comms,
+                      mats=ps.mats, device="cpu", backend=backend).run(
+                          verbose=False)
+    sh = make_sharded_engine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
+                             mats=sim.mats, devices=["cpu"] * 2,
+                             backend=backend)
+    assert sh.D == 2 and np.array_equal(sh.run(verbose=False), ref)
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "h5py", "pffdtd_tpu")]
 assert not bad, bad
