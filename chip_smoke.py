@@ -11,14 +11,18 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    csrc/tb_shard.cu) and K4 (csrc/stream.cu) from this checkout's sources,
    one nvcc per source, all started together.
    K4, the streaming probe, is held against PyTorch's sum, fill_ and copy_
-   and timed at 64 MB, 512 MB and 2 GB: GB/s per mode beside PyTorch's.
+   and timed at 64 MB, 512 MB and 2 GB: GB/s per mode beside PyTorch's,
+   each the median of 5 windows of 20 calls, the two alternating.  The
+   roof of every bound below is the faster of K4's copy and copy_.
 2. Per-kernel checks at the main path's shapes, from a seeded random state:
    each kernel vs its plain PyTorch version on the card, one call each.
    K1 and K2: fp32 max relative error <= 1e-6 (one call differs at most by
    summation order: the kernels are built without FMA contraction).  K3, one
-   sweep of TB = 2 and TB = 3 (fields, vh/gh, taps): <= 1e-5 of the largest
-   magnitude of each output.  Then fp64 on the small scenes of phase 3,
-   <= 1e-12.  Kernels and plain versions are timed with CUDA events.
+   sweep of every TB = 2..8 (fields, vh/gh, taps): <= 1e-5 of the largest
+   magnitude of each output, each timed (ms per sweep and per step: the
+   TB scan; TB = 2 and 3 over 20 sweeps, the deeper ones over 3).  Then fp64 on the small scenes of phase 3 (K3 at TB = 2, 3
+   and 8), <= 1e-12.  Kernels and plain versions are timed with CUDA
+   events.
    K5 and K6, the shard modes (in phase 5, on the engines it builds): K5 vs
    its plain version on the first, a middle and the last slab of the D = 4
    split, <= 1e-6; K6 with TB = 2 and 3 on the same slabs (fields, owned
@@ -62,11 +66,12 @@ import json
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-from pffdtd_tpu_torch.engine.torch_engine import TorchEngine
+from pffdtd_tpu_torch.engine.torch_engine import TorchEngine, pick_route
 from pffdtd_tpu_torch.io.simdata import MMb
 from pffdtd_tpu_torch.kernels import _build
 from pffdtd_tpu_torch.kernels.boundary import boundary_update, \
@@ -75,10 +80,11 @@ from pffdtd_tpu_torch.kernels.stencil import (stencil_step,
                                               stencil_step_plain,
                                               stencil_step_shard,
                                               stencil_step_shard_plain)
-from pffdtd_tpu_torch.kernels.stream import measure, stream, stream_plain, \
-    time_ms
-from pffdtd_tpu_torch.kernels.tb import (tb_sweep, tb_sweep_plain,
-                                         tb_sweep_shard, tb_sweep_shard_plain)
+from pffdtd_tpu_torch.kernels.stream import (measure, stream, stream_plain,
+                                             time_ms)
+from pffdtd_tpu_torch.kernels.tb import (TBScene, tb_sweep, tb_sweep_plain,
+                                         tb_sweep_shard, tb_sweep_shard_plain,
+                                         tile_threads)
 from pffdtd_tpu_torch.parallel.sharded_engine import make_sharded_engine
 from pffdtd_tpu_torch.scene import (fold_fcc_sim, pad_x_interior, rotate_sim,
                                     sort_sim, synthetic_box_sim)
@@ -209,11 +215,11 @@ def kernel_checks(eng, gen, timing_reps=0):
             "K2": k2 + t.get("K2", (None, None))}
 
 
-def tb_check(eng, gen, timing_reps=0):
+def tb_check(eng, gen, timing_reps=0, plain_reps=2):
     """One K3 sweep vs tb_sweep_plain from a random state (fields, vh/gh,
     source samples).  Returns (max rel err over the outputs, max abs err,
-    kernel ms, plain ms); each output's error is relative to its own
-    largest magnitude."""
+    kernel ms, plain ms or None when plain_reps is 0); each output's error
+    is relative to its own largest magnitude."""
     st, d = eng.tb_scene, eng.data
     TB = st.TB
     u0, u1, vh, gh = random_state(eng, gen)
@@ -241,8 +247,21 @@ def tb_check(eng, gen, timing_reps=0):
         t = (time_ms(lambda: tb_sweep(st, u0, u1, *ok_, vh, gh, *sk, sig,
                                       tk), timing_reps),
              time_ms(lambda: tb_sweep_plain(st, u0, u1, *op, vh, gh, *sp,
-                                            sig, tp), 2))
+                                            sig, tp), plain_reps)
+             if plain_reps else None)
     return (max(e[0] for e in errs), max(e[1] for e in errs)) + t
+
+
+def scene_engine(eng, TB):
+    """A stand-in for `eng` (a TorchEngine with a tb scene) whose scene
+    sweeps TB steps: the same device tensors, its own tile lists."""
+    st = eng.tb_scene
+    return SimpleNamespace(
+        TB=TB, data=eng.data, device=eng.device, dtype=eng.dtype,
+        tb_scene=TBScene.make(eng.data, TB, adj=st.adj, bnl=st.bnl,
+                              ssaf=st.ssaf, mat=st.mat,
+                              coef_table=st.coef_table, beta=st.beta,
+                              in_ixyz=st.in_ixyz, out_ixyz_f=st.out_ixyz_f))
 
 
 def randn(gen, dtype, *shape):
@@ -363,7 +382,7 @@ def slab_bytes_ops(eng, k):
     n_in, n_own = sh.bnl.numel(), int(sh.part.node_own.sum())
     nbytes = (plane * ((xh - xl) * isz + rows[0] * (isz + asz) + 2 * S * isz)
               + n_in * (2 * MMb * isz + isz + 4) + n_own * 2 * MMb * isz
-              + 4 * (st.tl_ptr.numel() + 3 * st.tl_node.numel()))
+              + 4 * (st.tl_rptr.numel() + 3 * st.tl_node.numel()))
     node_x = sh.part.bnl // (sl.shape[1] * sl.shape[2])
     nodes = sum(int(((node_x >= max(xa - TB + 1 + s, xl))
                      & (node_x < min(xb + TB - 1 - s, xh))).sum())
@@ -406,8 +425,7 @@ def phase5(sim, gen, single, roof, configs=SHARDED, cards=False):
             what = "K5" if es.TB is None else f"K6 TB={es.TB}"
             for k in (0, 1, D - 1):
                 fn = k5_check if es.TB is None else k6_check
-                r = fn(es, gen, k, timing_reps=(20 if es.TB is None else 10)
-                       if k == 1 else 0)
+                r = fn(es, gen, k, timing_reps=20 if k == 1 else 0)
                 chk[(what, k)] = r
                 tms = (f", kernel {r[2]:.4f} ms, plain {r[3]:.4f} ms"
                        if r[2] is not None else "")
@@ -447,7 +465,7 @@ def phase5(sim, gen, single, roof, configs=SHARDED, cards=False):
                           for k in (0, 1, 3)), r[2], r[3], nb, no, None)
             print(f"[5] K6 TB=3 {r[2]:.4f} ms/sweep on slab 1 = "
                   f"{r[2] / 3:.4f} ms/step; bound {nb / roof / 1e6:.4f} ms "
-                  f"at K4's roof", flush=True)
+                  f"at the roof", flush=True)
         if D == 4 and backend == "step" and not cards:
             print(f"[5] K5 {chk[('K5', 1)][2]:.4f} ms on slab 1 = "
                   f"{nb / chk[('K5', 1)][2] / 1e6:.1f} GB/s", flush=True)
@@ -505,18 +523,23 @@ def main():
             "K4 fill differs")
     del x, y, y2
     reset_counts()
-    probe = measure(STREAM_MB, reps=10)
+    probe = measure(STREAM_MB)
     k4_launches = counts()[3]
     require(k4_launches > 0, "the bandwidth probe launched no K4")
     for r in probe:
         print(f"[1] K4 {r['mode']:5s} {r['size_mb']:5d} MB: "
-              f"{r['gbps']:.1f} GB/s ({r['ms']:.4f} ms); torch "
-              f"{r['torch_gbps']:.1f} GB/s ({r['torch_ms']:.4f} ms)",
+              f"{r['gbps']:.1f} GB/s ({r['ms']:.4f} ms, windows spread "
+              f"{100 * r['spread']:.2f}%); torch {r['torch_gbps']:.1f} GB/s "
+              f"({r['torch_ms']:.4f} ms, {100 * r['torch_spread']:.2f}%)",
               flush=True)
-    roof = max(r["gbps"] for r in probe if r["mode"] == "copy")
-    k4 = max((r for r in probe if r["mode"] == "copy"),
-             key=lambda r: r["size_mb"])
-    print(f"[1] K4 read+write roof {roof:.1f} GB/s", flush=True)
+    copies = [r for r in probe if r["mode"] == "copy"]
+    # the roof: the faster of K4's copy and copy_, so no bound rests on a
+    # slow probe
+    roof = max(max(r["gbps"], r["torch_gbps"]) for r in copies)
+    k4 = max(copies, key=lambda r: r["size_mb"])
+    print(f"[1] read+write roof {roof:.1f} GB/s (K4 copy "
+          f"{max(r['gbps'] for r in copies):.1f}, copy_ "
+          f"{max(r['torch_gbps'] for r in copies):.1f})", flush=True)
 
     # ---- host setup of the main path's scene, one engine per route
     t0 = time.perf_counter()
@@ -526,8 +549,10 @@ def main():
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
     eng_pair = engine(sim, np.float32, backend="pair")
-    eng = engine(sim, np.float32)    # the default route: auto -> step
-    require(eng.backend == "step", f"auto picked {eng.backend}")
+    eng = engine(sim, np.float32)    # the default route: "auto"
+    require((eng.backend, eng.TB) == pick_route("auto"),
+            f"auto took {eng.backend} TB={eng.TB}, the rule says "
+            f"{pick_route('auto')}")
     g = eng.data.grid
     npts = g.Nx * g.Ny * g.Nz
     print(f"[4] headline scene {g.shape} = {npts / 1e6:.1f} Mvox, "
@@ -543,20 +568,36 @@ def main():
         print(f"[2] {k} fp32 main shapes: max rel err {r:.3e} (abs {a:.3e}),"
               f" kernel {ms:.4f} ms, plain {pms:.4f} ms", flush=True)
         require(r <= 1e-6, f"{k} fp32 disagrees with its plain version: {r}")
+    # K3 at every TB on the headline scene: checked against its plain
+    # version and timed, TB = 2 and 3 (the routes', on the pair and tb
+    # engines' scenes) over 20 sweeps, the deeper ones over 3
     tb_chk = {}
-    for e in (eng_pair, eng_tb):
-        r, a, ms, pms = tb_chk[e.TB] = tb_check(e, gen, timing_reps=10)
-        print(f"[2] K3 TB={e.TB} fp32 main shapes: max rel err {r:.3e} (abs "
-              f"{a:.3e}), kernel {ms:.4f} ms/sweep = {ms / e.TB:.4f} ms/step,"
-              f" plain {pms:.4f} ms/sweep", flush=True)
-        require(r <= 1e-5, f"K3 TB={e.TB} fp32 disagrees: {r}")
+    for TB in range(2, 9):
+        e = {2: eng_pair, 3: eng_tb}.get(TB) or scene_engine(eng_tb, TB)
+        deep = TB > 3
+        r, a, ms, pms = tb_chk[TB] = tb_check(
+            e, gen, timing_reps=3 if deep else 20, plain_reps=0 if deep else 2)
+        tl = e.tb_scene.lists
+        pt = f", plain {pms:.4f} ms/sweep" if pms is not None else ""
+        print(f"[2] K3 TB={TB} fp32 main shapes: max rel err {r:.3e} (abs "
+              f"{a:.3e}), kernel {ms:.4f} ms/sweep = {ms / TB:.4f} ms/step"
+              f"{pt}; tiles {tl.box} x {tl.ntiles}, "
+              f"{tile_threads(tl.box, TB)} threads", flush=True)
+        require(r <= 1e-5, f"K3 TB={TB} fp32 disagrees: {r}")
+        del e
+    torch.cuda.empty_cache()
+    best = min(tb_chk, key=lambda TB: tb_chk[TB][2] / TB)
+    step_ms = main_chk["K1"][2] + main_chk["K2"][2]
+    print(f"[2] per step: K3 at its best TB={best} "
+          f"{tb_chk[best][2] / best:.4f} ms, the step route's K1 + K2 "
+          f"{step_ms:.4f} ms; auto takes {eng.backend}", flush=True)
     small = {n: small_scene(n) for n in SMALL}
     for n, s in small.items():
         for k, (r, a, _, _) in kernel_checks(engine(s, np.float64),
                                              gen).items():
             print(f"[2] {k} fp64 {n}: max rel err {r:.3e}", flush=True)
             require(r <= 1e-12, f"{k} fp64 {n} disagrees: {r}")
-        for TB in (2, 3):
+        for TB in (2, 3, 8):
             r = tb_check(engine(s, np.float64, backend="tb", tb=TB), gen)[0]
             print(f"[2] K3 TB={TB} fp64 {n}: max rel err {r:.3e}",
                   flush=True)
@@ -631,14 +672,13 @@ def main():
     print(f"[4] K1 {k1_ms:.4f} ms/step = {k1_bytes / k1_ms / 1e6:.1f} GB/s "
           f"at {k1_bytes / npts:.2f} B/voxel; K2 {k2_ms:.4f} ms/step",
           flush=True)
-    k3_bytes = {}
+    tl = eng_tb.tb_scene.lists
+    k3_bytes = (ni * (4 * isz + eng.adj.element_size())
+                + eng.data.Nbl * (4 * MMb * isz + isz + 4)
+                + 4 * (tl.rptr.size + 3 * tl.node.size))
     for TB, (_, _, ms, _) in tb_chk.items():
-        st = (eng_tb if TB == 3 else eng_pair).tb_scene
-        tl = st.lists
-        k3_bytes[TB] = (ni * (4 * isz + eng.adj.element_size())
-                        + eng.data.Nbl * (4 * MMb * isz + isz + 4)
-                        + 4 * (tl.ptr.size + 3 * tl.node.size))
-        print(f"[4] K3 TB={TB} {ms:.4f} ms/sweep, {ms / TB:.4f} ms/step, "
+        print(f"[4] K3 TB={TB} {ms:.4f} ms/sweep, {ms / TB:.4f} ms/step "
+              f"(step route K1 + K2 {k1_ms + k2_ms:.4f}), "
               f"{ni * (4 * isz + eng.adj.element_size()) / ms / 1e6:.1f} "
               f"GB/s at 18 B/voxel per sweep", flush=True)
     print(f"[4] peak device memory "
@@ -658,7 +698,7 @@ def main():
                                main_chk["K2"][3], k2_bytes,
                                80.0 * eng.data.Nbl, None),
         "K3 tb_sweep": (c_tb[2], tb_chk[3][1], tb_chk[3][2], tb_chk[3][3],
-                        k3_bytes[3], 3 * 29.0 * ni
+                        k3_bytes, 3 * 29.0 * ni
                         + 3 * 80.0 * eng.data.Nbl, None),
         "K4 stream": (k4_launches, s_err, k4["ms"], k4["torch_ms"], k4_bytes,
                       0.0, k4["torch_ms"]),
@@ -672,7 +712,7 @@ def main():
             "replaces": KERNELS[name][1], "launches": n,
             "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b,
             "bound_by": by, "library_ms": lib_ms,
-            "bound_k4_roof_ms": nbytes / roof / 1e6})
+            "bound_roof_ms": nbytes / roof / 1e6})
     print(json.dumps(rec))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -100,15 +100,24 @@ class TileLists:
     """Per-tile CSR lists of the lossy nodes for K3, the TB-step sweep.
 
     The interior is cut into owned boxes of `box` = (Bx, By, Bz) points,
-    tile (tx, ty, tz) with id (tx*nty + ty)*ntz + tz.  A tile loads the
-    region R = its owned box grown by TB on every axis, clamped to the
-    interior, and computes step s of the sweep on the owned box grown by
-    TB-1-s.  Tile t's entries ptr[t]:ptr[t+1] are the lossy nodes within
-    TB-1 of its owned box (the reach of step 0), sorted by node id:
+    tile (tx, ty, tz) with id (tx*nty + ty)*ntz + tz: for K3's x-marching
+    blocks, Bx is the chunk of rows a block marches over and (By, Bz) its
+    y-z tile.  A tile's region R is its owned box grown by TB on every
+    axis, clamped to the interior; step s of the sweep (0-based) computes
+    the owned box grown by TB-1-s.  Tile t's entries ptr[t]:ptr[t+1] are the
+    lossy nodes within TB-1 of its owned box (the reach of step 0), sorted
+    by row x, then node id:
     - node: index into the engine's node arrays (bnl_ixyz, ssaf, mat, vh);
     - off:  the node's offset in the tile's R layout, z fastest;
     - ring: its Chebyshev distance outside the owned box, so it takes part
-      in steps s <= TB-1-ring, and ring 0 marks the owner (`owned`).
+      in steps s <= TB-1-ring, and ring 0 marks the owner (`owned`);
+    - row:  its row x;
+    - yz:   its offset in one plane slot of K3, the owned y-z tile grown by
+      TB on each side without clamping, (y - oy0 + TB) * (Bz + 2 TB) +
+      (z - oz0 + TB);
+    - rptr: per tile, W + 1 = Bx + 2(TB-1) + 1 row pointers: tile t's
+      entries of row x0(t) - (TB-1) + k are rptr[t*(W+1) + k] ..
+      rptr[t*(W+1) + k + 1], x0(t) its first owned row.
     This replaces the TPU kernels' plane/stray partitions
     (pallas_boundary.py `partition_boundary_planes` / `_strays`): every
     lossy node goes through one list, whatever its geometry."""
@@ -120,6 +129,9 @@ class TileLists:
     node: np.ndarray    # (E,) int32
     off: np.ndarray     # (E,) int32
     ring: np.ndarray    # (E,) int32
+    row: np.ndarray     # (E,) int32
+    yz: np.ndarray      # (E,) int32
+    rptr: np.ndarray    # (ntx*nty*ntz * (Bx + 2TB - 1),) int32
 
     @property
     def owned(self) -> np.ndarray:
@@ -182,24 +194,36 @@ def build_tile_lists(bnl_ixyz, grid: GridSpec, box, TB: int,
     cn = c[:, node]
     ring = np.zeros(node.size, np.int64)
     off = np.zeros(node.size, np.int64)
+    o0s = []
     for a in range(3):
         o0, o1 = tile_bounds(t[a], B[a], N[a], 0, spans[a])
+        o0s.append(o0)
         ring = np.maximum(ring, np.maximum(o0 - cn[a], cn[a] - (o1 - 1)))
         r0, r1 = tile_bounds(t[a], B[a], N[a], TB, spans[a])
         off = off * (r1 - r0) + (cn[a] - r0)
     assert (ring >= 0).all()
+    yz = (cn[1] - o0s[1] + TB) * (B[2] + 2 * TB) + (cn[2] - o0s[2] + TB)
+    # rows of a tile's list, counted from its first owned row - (TB-1)
+    k = cn[0] - (o0s[0] - r)
     # a partial last tile may take a node r+1 past its rows: drop those
     keep = ring <= r
-    t, node, off, ring = t[:, keep], node[keep], off[keep], ring[keep]
+    t, node, off, ring, yz, k = (t[:, keep], node[keep], off[keep],
+                                 ring[keep], yz[keep], k[keep])
+    ntot = int(nt.prod())
     tid = (t[0] * nt[1] + t[1]) * nt[2] + t[2]
-    order = np.lexsort((node, tid))
-    ptr = np.zeros(int(nt.prod()) + 1, np.int64)
-    ptr[1:] = np.cumsum(np.bincount(tid, minlength=int(nt.prod())))
+    order = np.lexsort((node, k, tid))
+    ptr = np.zeros(ntot + 1, np.int64)
+    ptr[1:] = np.cumsum(np.bincount(tid, minlength=ntot))
+    W = int(B[0]) + 2 * r
+    key = (tid * W + k)[order]
+    rptr = np.searchsorted(key, (np.arange(ntot)[:, None] * W
+                                 + np.arange(W + 1)[None]).ravel())
     i32 = lambda a: np.ascontiguousarray(a, np.int32)
     return TileLists(TB=TB, box=tuple(int(b) for b in B),
                      ntiles=tuple(int(n) for n in nt), ptr=i32(ptr),
                      node=i32(node[order]), off=i32(off[order]),
-                     ring=i32(ring[order]))
+                     ring=i32(ring[order]), row=i32(cn[0][keep][order]),
+                     yz=i32(yz[order]), rptr=i32(rptr))
 
 
 def abc_layer_mask(ixyz, grid: GridSpec) -> np.ndarray:

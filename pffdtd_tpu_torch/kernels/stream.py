@@ -20,12 +20,14 @@ from __future__ import annotations
 import argparse
 import json
 
+import numpy as np
 import torch
 
 from pffdtd_tpu_torch.kernels import _build
 
 MODES = ("read", "write", "copy")
 _MODE_ID = {"read": 0, "write": 1, "copy": 2}
+WINDOWS = 5    # timing windows per mode and size, whose median is taken
 
 
 def _check(mode, x, y):
@@ -59,7 +61,7 @@ def stream(mode: str, x=None, y=None, value: float = 0.0):
     lib = _build.library()
     partial = out = None
     if mode == "read":
-        blocks = lib.pf_stream_blocks()
+        blocks = lib.pf_stream_blocks(t.numel())
         if blocks <= 0:
             raise RuntimeError("stream: no CUDA device to size the grid")
         partial = torch.empty(blocks, dtype=torch.float64, device=t.device)
@@ -103,10 +105,13 @@ def time_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def measure(sizes_mb=(64, 512, 2048), reps=10):
-    """Rows {size_mb, mode, ms, gbps, torch_ms, torch_gbps} on the card:
-    bytes moved (read: n*4, write: n*4, copy: 2*n*4) over the mean time of
-    `reps` calls after a warm-up, from CUDA events."""
+def measure(sizes_mb=(64, 512, 2048), reps=20):
+    """Rows {size_mb, mode, ms, gbps, torch_ms, torch_gbps, spread,
+    torch_spread} on the card: bytes moved (read: n*4, write: n*4, copy:
+    2*n*4) over the median, across WINDOWS windows, of the mean time of
+    `reps` calls, from CUDA events after a warm-up.  K4's windows and
+    PyTorch's (sum, fill_, copy_) alternate, so a drift of the card's clock
+    reaches both; spread is (slowest - fastest) / median of the windows."""
     if not torch.cuda.is_available():
         raise RuntimeError("the bandwidth probe runs on an NVIDIA card only")
     rows = []
@@ -122,11 +127,16 @@ def measure(sizes_mb=(64, 512, 2048), reps=10):
                      8 * n),
         }
         for mode, (k, lib_call, nbytes) in calls.items():
-            ms = time_ms(k, reps)
-            tms = time_ms(lib_call, reps)
+            ks, ts = [], []
+            for _ in range(WINDOWS):
+                ks.append(time_ms(k, reps))
+                ts.append(time_ms(lib_call, reps))
+            ms, tms = float(np.median(ks)), float(np.median(ts))
             rows.append({"size_mb": mb, "mode": mode, "ms": ms,
                          "gbps": nbytes / ms / 1e6, "torch_ms": tms,
-                         "torch_gbps": nbytes / tms / 1e6})
+                         "torch_gbps": nbytes / tms / 1e6,
+                         "spread": (max(ks) - min(ks)) / ms,
+                         "torch_spread": (max(ts) - min(ts)) / tms})
         del x, y
         torch.cuda.empty_cache()
     return rows
@@ -135,7 +145,7 @@ def measure(sizes_mb=(64, 512, 2048), reps=10):
 def main(argv=None):
     p = argparse.ArgumentParser(prog="pffdtd_tpu_torch.kernels.stream")
     p.add_argument("--sizes-mb", type=int, nargs="+", default=[64, 512, 2048])
-    p.add_argument("--reps", type=int, default=10)
+    p.add_argument("--reps", type=int, default=20)
     args = p.parse_args(argv)
     print(f"device {torch.cuda.get_device_name(0)}")
     for r in measure(args.sizes_mb, args.reps):

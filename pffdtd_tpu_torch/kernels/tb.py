@@ -27,6 +27,7 @@ double-buffers the branch states; the wrapper refuses aliased buffers.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -40,39 +41,117 @@ from pffdtd_tpu_torch.kernels.boundary import boundary_update_plain
 from pffdtd_tpu_torch.kernels.stencil import (stencil_rows_plain,
                                               stencil_step_plain)
 
-THREADS = 256          # kThreads in csrc/tb.cu
-PER_THREAD = 4         # kMaxPer in csrc/tb.cu: lossy-list entries a thread
-MAX_NODES = THREADS * PER_THREAD   # holds in registers; list cap per tile
+# mirrors of csrc/tb.cu's constants
+SKEW = 2               # kSkew: level s works at plane X - SKEW * s
+MAX_ROWS = 8           # kMaxRows: tile rows a thread holds
+MAX_THREADS = 512      # kMaxThreads
+THREADS = 256          # the block size the planner starts from
+CHUNK = 64             # most rows a block marches over (kMaxChunk = 128)
+MIN_CHUNK = 16         # fewest, where the extent has them
+# row widths Bz + 2TB the kernel is built for, per itemsize
+ROW_WIDTHS = {4: (32, 64), 8: (32,)}
 SMEM_LIMIT = 232448    # shared memory one block may use on the H100
-# owned tile boxes (x, y, z), tried in order until the tile fits the shared
-# memory and its lossy list fits MAX_NODES
-TILES = ((8, 8, 32), (8, 8, 16), (4, 8, 16), (4, 4, 16), (4, 4, 8),
-         (2, 4, 8), (2, 2, 8), (2, 2, 4), (1, 2, 4), (1, 1, 4), (1, 1, 2),
-         (1, 1, 1))
+SMEM_SM = 233472       # shared memory of one SM; each block also takes 1 KiB
+SMS = 132              # streaming multiprocessors of the H100 SXM
+# the planner's costs, in lane-point-steps (fitted to chip_smoke.py's
+# headline scene on the H100): a thread's own work at each march position
+# and level (bookkeeping, barriers), and the ramp of a chunk per step
+THREAD_COST = 3.0
+RAMP_ROWS = 1.5
 
 
-def smem_bytes(box, TB: int, itemsize: int, adj_itemsize: int) -> int:
-    """Shared memory of one K3 block: two field levels and the adjacency
-    over the owned box grown by TB."""
-    n = int(np.prod([b + 2 * TB for b in box]))
-    return n * (2 * itemsize + adj_itemsize)
+def ring_slots(s: int, TB: int) -> int:
+    """Plane slots of level s (-1 .. TB) in shared memory (csrc/tb.cu's
+    ring-slot rule)."""
+    if s == -1:
+        return 3
+    return 2 * SKEW + 1 if s < TB else 2
+
+
+def smem_bytes(By: int, Bz: int, TB: int, itemsize: int,
+               adj_itemsize: int) -> int:
+    """Shared memory of one K3 block: the plane rings of every level and of
+    adj over the y-z tile grown by TB."""
+    fields = sum(ring_slots(s, TB) for s in range(-1, TB + 1))
+    adjs = SKEW * TB + 1
+    return (By + 2 * TB) * (Bz + 2 * TB) * (fields * itemsize
+                                            + adjs * adj_itemsize)
+
+
+def tile_threads(box, TB: int) -> int:
+    """Threads of a K3 block for the owned box (Cx, By, Bz): teams of
+    Rz = Bz + 2TB threads, each team a set of the tile's rows; 0 when no
+    block of at most MAX_THREADS holds the tile."""
+    _, By, Bz = box
+    Rz, Ry = Bz + 2 * TB, By + 2 * TB
+    teams = max(THREADS // Rz, -(-Ry // MAX_ROWS), 1)
+    return teams * Rz if teams * Rz <= MAX_THREADS else 0
+
+
+def plan_chunk(rows: int, ntiles: int, TB: int, per_sm: int) -> int:
+    """Rows Cx a block marches over, for `rows` rows to cover with `ntiles`
+    y-z tiles at `per_sm` blocks an SM.
+
+    A launch ends with its last blocks running beside idle slots: that tail
+    lasts about one block's march, Cx rows.  Each chunk adds a ramp of about
+    RAMP_ROWS * TB rows (the levels filling and draining).  Over the
+    ntiles * rows / slots rows each of the SMS * per_sm slots marches, the
+    sum is least at Cx = sqrt(RAMP_ROWS * TB * ntiles * rows / slots), taken
+    within MIN_CHUNK .. CHUNK and then evened out over the chunks.  So a
+    short slab marches short chunks (17 rows at TB = 2 on a 198-row slab of
+    the headline scene), a whole grid longer ones (35 rows)."""
+    slots = SMS * per_sm
+    cx = round(math.sqrt(RAMP_ROWS * TB * ntiles * rows / slots))
+    cx = max(1, min(CHUNK, rows, max(cx, MIN_CHUNK)))
+    n = -(-rows // cx)
+    return -(-rows // n)
 
 
 def plan_tiles(grid: GridSpec, TB: int, itemsize: int, bnl_ixyz,
                slab: SlabSpec | None = None) -> TileLists:
-    """The first box of TILES that fits, with its lossy lists (of a slab's
-    local node indices when `slab` is given)."""
+    """K3's block for this grid, TB and dtype, with its lossy lists (of a
+    slab's local node indices when `slab` is given).
+
+    Candidates are y-z tiles of By x Bz owned columns with Bz + 2TB one
+    of the row widths the kernel is built for (ROW_WIDTHS: whole warps on
+    a row).  Among those whose shared memory lets two blocks share an SM
+    (else one), the planner takes the one that costs the least per owned
+    point-step on this grid: the lane-point-steps it computes (the y and z
+    halo, the lanes of a part-filled last tile and the idle lanes of the
+    levels' narrower rows all count) plus THREAD_COST for each thread,
+    march position and level, so that of two tiles with as many lanes the
+    one with more rows a thread wins.  The chunk comes from `plan_chunk`.
+    Raises only where no tile fits."""
     if not 2 <= TB <= 8:
         raise ValueError(f"TB={TB}: 2..8 steps per sweep")
     adj_itemsize = 2 if grid.fcc_flag else 1
-    for box in TILES:
-        if smem_bytes(box, TB, itemsize, adj_itemsize) > SMEM_LIMIT:
-            continue
-        tl = build_tile_lists(bnl_ixyz, grid, box, TB, slab)
-        if tl.max_per_tile <= MAX_NODES:
-            return tl
-    raise ValueError(f"no tile box fits TB={TB}: a tile holds more than "
-                     f"{MAX_NODES} lossy nodes")
+    _, Ny, Nz = grid.shape
+    rows = slab.S if slab is not None else grid.Nx - 2
+    best = None
+    for per_sm, budget in ((2, SMEM_SM // 2 - 1024), (1, SMEM_LIMIT)):
+        for Rz in ROW_WIDTHS[itemsize]:
+            Bz = Rz - 2 * TB
+            if Bz < 1:
+                continue
+            for By in range(1, 257):
+                if smem_bytes(By, Bz, TB, itemsize, adj_itemsize) > budget:
+                    break
+                nthr = tile_threads((1, By, Bz), TB)
+                if not nthr:
+                    continue
+                lanes = sum(By + 2 * (TB - s) for s in range(1, TB + 1))
+                tiles = -(-(Ny - 2) // By) * -(-(Nz - 2) // Bz)
+                cost = (tiles * (lanes * Rz + THREAD_COST * TB * nthr)
+                        / ((Ny - 2) * (Nz - 2) * TB))
+                if best is None or cost < best[0]:
+                    best = (cost, By, Bz, tiles, per_sm)
+        if best is not None:
+            break
+    if best is None:
+        raise ValueError(f"no K3 tile fits TB={TB} at {itemsize} B a value")
+    _, By, Bz, tiles, per_sm = best
+    box = (plan_chunk(rows, tiles, TB, per_sm), By, Bz)
+    return build_tile_lists(bnl_ixyz, grid, box, TB, slab)
 
 
 def _xyz(ixyz, grid) -> np.ndarray:
@@ -89,8 +168,9 @@ class TBScene:
     """The static tensors of a sweep, on one device.
 
     The plain version reads the engine's arrays (adj .. out_ixyz_f); the
-    kernel reads the tile lists and the sources' and mirrored receivers'
-    (n, 3) coordinates instead of flat indices.  A slab's scene (`slab` set)
+    kernel reads the tile lists, a scratch for the listed nodes' branch
+    states and the sources' and mirrored receivers' (n, 3) coordinates
+    instead of flat indices.  A slab's scene (`slab` set)
     holds local indices and coordinates: the nodes and sources within TB-1
     rows of its owned rows, and its owned receivers."""
 
@@ -106,12 +186,14 @@ class TBScene:
     beta: torch.Tensor
     in_ixyz: torch.Tensor
     out_ixyz_f: torch.Tensor
-    tl_ptr: torch.Tensor
+    tl_rptr: torch.Tensor
     tl_node: torch.Tensor
-    tl_off: torch.Tensor
+    tl_yz: torch.Tensor
     tl_ring: torch.Tensor
+    scratch: torch.Tensor     # (2 MMb, E): branch states between levels
     src_xyz: torch.Tensor
     rcv_xyz: torch.Tensor
+    src_k2: bool              # a source sits on a lossy node
     slab: SlabSpec | None = None
 
     @property
@@ -136,10 +218,10 @@ class TBScene:
         return cls(grid=g, sc=data.sc, TB=TB, lists=lists, adj=adj, bnl=bnl,
                    ssaf=ssaf, mat=mat, coef_table=coef_table, beta=beta,
                    in_ixyz=in_ixyz, out_ixyz_f=out_ixyz_f,
-                   tl_ptr=up(lists.ptr), tl_node=up(lists.node),
-                   tl_off=up(lists.off), tl_ring=up(lists.ring),
+                   **_list_tensors(lists, ssaf, up),
                    src_xyz=up(_xyz(data.in_ixyz, g)),
-                   rcv_xyz=up(_xyz(mirror_index(data.out_ixyz, g), g)))
+                   rcv_xyz=up(_xyz(mirror_index(data.out_ixyz, g), g)),
+                   src_k2=bool(np.isin(data.in_ixyz, data.bnl_ixyz).any()))
 
     @classmethod
     def make_slab(cls, slab: SlabSpec, sc, TB: int, itemsize: int, *, adj,
@@ -159,11 +241,20 @@ class TBScene:
         return cls(grid=slab.grid, sc=sc, TB=TB, lists=lists, adj=adj,
                    bnl=bnl, ssaf=ssaf, mat=mat, coef_table=coef_table,
                    beta=beta, in_ixyz=in_ixyz, out_ixyz_f=out_ixyz_f,
-                   tl_ptr=up(lists.ptr), tl_node=up(lists.node),
-                   tl_off=up(lists.off), tl_ring=up(lists.ring),
+                   **_list_tensors(lists, ssaf, up),
                    src_xyz=up(_xyz(in_ixyz.cpu().numpy(), slab)),
                    rcv_xyz=up(_xyz(out_ixyz_f.cpu().numpy(), slab)),
+                   src_k2=bool(np.isin(in_ixyz.cpu().numpy(),
+                                       bnl.cpu().numpy()).any()),
                    slab=slab)
+
+
+def _list_tensors(lists: TileLists, ssaf, up) -> dict:
+    """The tile lists on the device, with the scratch of their entries."""
+    return dict(tl_rptr=up(lists.rptr), tl_node=up(lists.node),
+                tl_yz=up(lists.yz), tl_ring=up(lists.ring),
+                scratch=torch.empty((2 * MMb, lists.node.size),
+                                    dtype=ssaf.dtype, device=ssaf.device))
 
 
 def _check(st: TBScene, u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out,
@@ -197,7 +288,8 @@ def _check(st: TBScene, u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out,
     if st.adj.dtype != adt or tuple(st.adj.shape) != shape:
         raise ValueError(f"adj: want a {shape} {adt} grid")
     tensors = [u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out, sig,
-               st.adj, st.bnl, st.mat, st.in_ixyz, st.out_ixyz_f, st.tl_ptr]
+               st.adj, st.bnl, st.mat, st.in_ixyz, st.out_ixyz_f, st.tl_rptr,
+               st.scratch]
     if len({t.device for t in tensors + ([taps] if TB > 2 else [])}) != 1:
         raise ValueError("every tensor of a sweep must lie on one device")
     if len({t.data_ptr() for t in (u0, u1, out0, out1)}) != 4:
@@ -205,7 +297,11 @@ def _check(st: TBScene, u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out,
     if nbl and len({t.data_ptr() for t in (vh_in, gh_in, vh_out,
                                             gh_out)}) != 4:
         raise ValueError("vh_in, gh_in, vh_out, gh_out must be distinct")
-    if st.tl_ptr.numel() != int(np.prod(st.lists.ntiles)) + 1:
+    tl = st.lists
+    W = tl.box[0] + 2 * (TB - 1)
+    if (st.tl_rptr.numel() != int(np.prod(tl.ntiles)) * (W + 1)
+            or tuple(st.scratch.shape) != (2 * MMb, tl.node.size)
+            or st.scratch.dtype != dt or not tile_threads(tl.box, TB)):
         raise ValueError("tile lists do not match the scene")
 
 
@@ -244,15 +340,16 @@ def _launch_args(st, u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out, sig,
         0 if u1.dtype == torch.float32 else 1, 12 if g.fcc_flag else 6,
         st.TB, u0.data_ptr(), u1.data_ptr(), st.adj.data_ptr(),
         out0.data_ptr(), out1.data_ptr(), Nx, Ny, Nz, int(g.folded),
-        *tl.box, sc.a2, sc.sl2, sc.l * 1, sc.l * 2, sc.l * 3, sc.l, sc.lo2,
-        st.tl_ptr.data_ptr(), st.tl_node.data_ptr(), st.tl_off.data_ptr(),
-        st.tl_ring.data_ptr(), st.ssaf.data_ptr(), st.mat.data_ptr(),
-        st.coef_table.data_ptr(), st.beta.data_ptr(), vh_in.data_ptr(),
-        gh_in.data_ptr(), vh_out.data_ptr(), gh_out.data_ptr(),
-        st.bnl.numel(), st.src_xyz.data_ptr(), sig.data_ptr(),
-        st.in_ixyz.numel(), st.rcv_xyz.data_ptr(),
+        *tl.box, tile_threads(tl.box, st.TB), sc.a2, sc.sl2, sc.l * 1,
+        sc.l * 2, sc.l * 3, sc.l, sc.lo2, st.tl_rptr.data_ptr(),
+        st.tl_node.data_ptr(), st.tl_yz.data_ptr(), st.tl_ring.data_ptr(),
+        tl.node.size, st.scratch.data_ptr(), st.ssaf.data_ptr(),
+        st.mat.data_ptr(), st.coef_table.data_ptr(), st.beta.data_ptr(),
+        vh_in.data_ptr(), gh_in.data_ptr(), vh_out.data_ptr(),
+        gh_out.data_ptr(), st.bnl.numel(), st.src_xyz.data_ptr(),
+        sig.data_ptr(), st.in_ixyz.numel(), st.rcv_xyz.data_ptr(),
         taps.data_ptr() if taps is not None else None,
-        st.out_ixyz_f.numel())
+        st.out_ixyz_f.numel(), int(st.src_k2))
 
 
 def tb_sweep_shard(st: TBScene, u0, u1, out0, out1, vh_in, gh_in, vh_out,

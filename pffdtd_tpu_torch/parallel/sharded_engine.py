@@ -341,8 +341,8 @@ def make_sharded_engine(folder=None, *, consts=None, vox=None, comms=None,
     `TorchEngine.pick_route` on the H100, where K3 (and so K6) is slower
     per step than K1 + K2.  The JAX rule prefers the pair engine, because
     on the TPU two steps per sweep halve the bytes of the device memory and
-    of the chip links; here the sweep's instruction stream, not its bytes,
-    sets its time (PERF.md)."""
+    of the chip links; here the sweep's shared-memory stencil and its
+    latency chains, not its bytes, set its time (PERF.md)."""
     if folder is not None:
         sim = read_sim_folder(folder)
     else:

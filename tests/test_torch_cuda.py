@@ -13,14 +13,21 @@ and K2's arithmetic per step, so one sweep is held to the same bounds; K4's
 copy and fill are exact and its float64 sum agrees with PyTorch's to 1e-12
 of the sum of |x|.  K5 and K6 (the shard modes of K1 and K3) are held to the
 same bounds on every slab of a split, and the sharded engine's kernel
-routes to the single-device plain path in fp64.
+routes to the single-device plain path in fp64.  The K3/K6 sweeps run at
+TB = 2, 3, 4, 8 (K6: 2, 3, 5), on planned chunks and on 7-row ones (a
+partial last chunk, and a source on a lossy node), with sources and
+receivers on chunk and tile edges; K4 on sizes that leave a tail after
+whole float4s and after whole blocks.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
 from pffdtd_tpu_torch.engine.torch_engine import TorchEngine
+from pffdtd_tpu_torch.kernels import tb as ktb
 from pffdtd_tpu_torch.io.simdata import MMb
 from pffdtd_tpu_torch.kernels.boundary import (boundary_update,
                                                boundary_update_plain)
@@ -129,30 +136,84 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                         torch.zeros((MMb, d.Nbl), device=cuda), d.sc)
 
 
-@pytest.mark.parametrize("TB", [2, 3, 5])
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("name", list(CASES))
-def test_tb_sweep_matches_plain(cuda, name, dtype, TB):
-    eng = _engine(name, dtype, backend="tb", tb=TB)
-    st, d = eng.tb_scene, eng.data
-    rng = np.random.default_rng(1)
-    t = lambda *s: torch.from_numpy(
-        rng.standard_normal(s).astype(dtype)).to(cuda)
-    u0, u1 = t(*d.grid.shape), t(*d.grid.shape)
-    vh, gh = t(MMb, d.Nbl), t(MMb, d.Nbl)
-    sig = t(TB, d.in_ixyz.size)
-    nr = d.out_ixyz.size
+def _edge_points(st, src_rows, rcv_rows):
+    """`st` with its sources and receivers moved onto the edges of the
+    kernel's chunks and tiles: local rows `src_rows` and `rcv_rows`, each
+    at the last owned and the first next column of the first y and z
+    tiles."""
+    _, By, Bz = st.lists.box
+    Nx, Ny, Nz = st.shape
+    ys = [min(y, Ny - 2) for y in (By, By + 1)]
+    zs = [min(z, Nz - 2) for z in (Bz, Bz + 1)]
+
+    def pts(rows):
+        xyz = np.array([(x, y, z) for x in rows for y in ys for z in zs],
+                       np.int64).reshape(-1, 3)
+        flat = (xyz[:, 0] * Ny + xyz[:, 1]) * Nz + xyz[:, 2]
+        return (torch.from_numpy(flat).to(st.adj.device),
+                torch.from_numpy(xyz.astype(np.int32)).to(st.adj.device))
+
+    (si, sc), (ri, rc) = pts(src_rows), pts(rcv_rows)
+    return dataclasses.replace(
+        st, in_ixyz=si, src_xyz=sc, out_ixyz_f=ri, rcv_xyz=rc,
+        src_k2=bool(np.isin(si.cpu().numpy(), st.bnl.cpu().numpy()).any()))
+
+
+def _with_node_source(st):
+    """`st` with one more source, on its first lossy node (so the kernel
+    adds the sources behind K2)."""
+    node = st.bnl[:1]
+    Nx, Ny, Nz = st.shape
+    i = int(node[0])
+    xyz = torch.tensor([[i // (Ny * Nz), i // Nz % Ny, i % Nz]],
+                       dtype=torch.int32, device=node.device)
+    return dataclasses.replace(
+        st, in_ixyz=torch.cat([st.in_ixyz, node]),
+        src_xyz=torch.cat([st.src_xyz, xyz]), src_k2=True)
+
+
+def _sweep_pair(fn_k, fn_p, st, t, nbl, TB, dtype, cuda):
+    """(kernel outputs, plain outputs) of one sweep from the same random
+    state: out0, out1, vh_out, gh_out and the taps."""
+    u0, u1 = t(*st.shape), t(*st.shape)
+    vh, gh = t(MMb, nbl), t(MMb, nbl)
+    sig = t(TB, st.in_ixyz.numel())
+    nr = st.out_ixyz_f.numel()
     outs = []
-    for fn in (tb_sweep, tb_sweep_plain):
+    for fn in (fn_k, fn_p):
         o = [torch.full_like(u0, float("nan")) for _ in range(2)]
         s2 = [torch.full_like(vh, float("nan")) for _ in range(2)]
         taps = torch.full((TB - 2, nr), float("nan"), dtype=u0.dtype,
                           device=cuda) if TB > 2 else None
-        n = tb_sweep.launches
+        n = fn_k.launches
         fn(st, u0, u1, *o, vh, gh, *s2, sig, taps)
         torch.cuda.synchronize()
-        assert tb_sweep.launches == n + (fn is tb_sweep)
+        assert fn_k.launches == n + (fn is fn_k)
         outs.append(o + s2 + ([taps] if TB > 2 else []))
+    return outs
+
+
+# chunk 7: several chunks a grid, the last one partial (Nx - 2 = 31 or 26
+# rows), and a source on a lossy node; the y and z extents are no
+# multiples of the planned tiles
+@pytest.mark.parametrize("chunk", [None, 7])
+@pytest.mark.parametrize("TB", [2, 3, 4, 8])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("name", list(CASES))
+def test_tb_sweep_matches_plain(cuda, monkeypatch, name, dtype, TB, chunk):
+    if chunk:
+        monkeypatch.setattr(ktb, "CHUNK", chunk)
+    eng = _engine(name, dtype, backend="tb", tb=TB)
+    Cx, Nx = eng.tb_scene.lists.box[0], eng.data.grid.Nx
+    rows = [x for x in (Cx, Cx + 1) if x <= Nx - 2]
+    st = _edge_points(eng.tb_scene, rows, rows)
+    if chunk:
+        st = _with_node_source(st)
+    rng = np.random.default_rng(1)
+    t = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(dtype)).to(cuda)
+    outs = _sweep_pair(tb_sweep, tb_sweep_plain, st, t, eng.data.Nbl, TB,
+                       dtype, cuda)
     inner = (slice(1, -1),) * 3
     for i, (a, b) in enumerate(zip(*outs)):
         if i < 2:
@@ -172,7 +233,10 @@ def test_tb_route_matches_plain_path_fp64(cuda, name, backend):
     assert np.abs(uk - up).max() / np.abs(up).max() <= 1e-12
 
 
-@pytest.mark.parametrize("n", [1 << 20, (1 << 20) + 3])
+# tails after whole float4s and after whole blocks of 8 float4 a thread,
+# and a size under one float4
+@pytest.mark.parametrize("n", [1 << 20, (1 << 20) + 3, 4 * (8 * 256 * 7 + 5)
+                               + 2, 4 * 8 * 256 * 3 + 1000, 17, 3])
 def test_stream_matches_plain(cuda, n):
     x = torch.randn(n, device=cuda)
     y, y2 = torch.empty_like(x), torch.empty_like(x)
@@ -211,32 +275,31 @@ def test_stencil_step_shard_matches_plain(cuda, name, dtype):
         assert torch.isnan(a[:sl.G]).all() and torch.isnan(a[-sl.G:]).all()
 
 
-@pytest.mark.parametrize("TB", [2, 3])
+@pytest.mark.parametrize("chunk", [None, 7])
+@pytest.mark.parametrize("TB", [2, 3, 5])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("name", list(CASES))
-def test_tb_sweep_shard_matches_plain(cuda, name, dtype, TB):
+def test_tb_sweep_shard_matches_plain(cuda, monkeypatch, name, dtype, TB,
+                                      chunk):
+    if chunk:
+        monkeypatch.setattr(ktb, "CHUNK", chunk)
     eng = _sharded(name, dtype, 2, backend="tb", tb=TB)
     rng = np.random.default_rng(3)
     t = lambda *s: torch.from_numpy(
         rng.standard_normal(s).astype(dtype)).to(cuda)
     for sh in eng.shards:
-        st, sl = sh.tb_scene, sh.slab
-        nbl = sh.bnl.numel()
-        u0, u1 = t(*sl.shape), t(*sl.shape)
-        vh, gh = t(MMb, nbl), t(MMb, nbl)
-        sig = t(TB, st.in_ixyz.numel())
-        nr = st.out_ixyz_f.numel()
-        outs = []
-        for fn in (tb_sweep_shard, tb_sweep_shard_plain):
-            o = [torch.full_like(u0, float("nan")) for _ in range(2)]
-            s2 = [torch.full_like(vh, float("nan")) for _ in range(2)]
-            taps = torch.full((TB - 2, nr), float("nan"), dtype=u0.dtype,
-                              device=cuda) if TB > 2 else None
-            n = tb_sweep_shard.launches
-            fn(st, u0, u1, *o, vh, gh, *s2, sig, taps)
-            torch.cuda.synchronize()
-            assert tb_sweep_shard.launches == n + (fn is tb_sweep_shard)
-            outs.append(o + s2 + ([taps] if TB > 2 else []))
+        sl = sh.slab
+        Cx = sh.tb_scene.lists.box[0]
+        # sources on the chunk edge and in the ghost bands; receivers, which
+        # the owner alone writes, on owned rows
+        lo, hi = sl.owned
+        edge = [lo + Cx - 1, lo + Cx]
+        st = _edge_points(sh.tb_scene, edge + [lo - 1, hi],
+                          [x for x in edge if x < hi])
+        if chunk and sh.bnl.numel():
+            st = _with_node_source(st)
+        outs = _sweep_pair(tb_sweep_shard, tb_sweep_shard_plain, st, t,
+                           sh.bnl.numel(), TB, dtype, cuda)
         own = (slice(*sl.owned), slice(1, -1), slice(1, -1))
         mine = torch.from_numpy(sh.part.node_own).to(cuda)
         for b2 in outs[0][2:4]:      # the owners write the ghost-band slots

@@ -17,6 +17,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as hs
 
 import pffdtd_tpu.comms as jcomms
 import pffdtd_tpu.consts as jconsts
@@ -261,3 +262,120 @@ def test_h5_copy_reads_and_writes_like_the_original(tmp_path):
     np.testing.assert_array_equal(h5.read_outputs(tmp_path), u[ro])
     simdata.write_outputs(tmp_path, u)
     np.testing.assert_array_equal(jh5.read_outputs(tmp_path), u)
+
+
+# ---- K3's tile lists: rows, per-row pointers, y-z offsets, rings
+def _list_scene(name, TB, D=None):
+    """(EngineData, node indices, SlabSpec or None, lists) of a scene, for
+    the whole grid or (D given) for slab 1 of D x-slabs."""
+    from pffdtd_tpu_torch.kernels.tb import plan_tiles
+    from pffdtd_tpu_torch.parallel.partition import partition, x_slabs
+    from pffdtd_tpu_torch.scene import pad_x_interior
+    dims, h, fcc, _, fold = SCENES[name]
+    sim = scene.synthetic_box_sim(*dims, h=h, Nt=4, fcc=fcc, lossy=True,
+                                  insig_type="hann10", diff_source=False)
+    if fold:
+        sim = scene.sort_sim(scene.fold_fcc_sim(sim))
+    if D is None:
+        d = EngineData(sim.consts, sim.vox, sim.comms, sim.mats)
+        return d, d.bnl_ixyz, None, plan_tiles(d.grid, TB, 4, d.bnl_ixyz)
+    sim = pad_x_interior(sim, D)
+    d = EngineData(sim.consts, sim.vox, sim.comms, sim.mats)
+    part = partition(d, x_slabs(d.grid, D, TB))[1]
+    return d, part.bnl, part.slab, plan_tiles(d.grid, TB, 4, part.bnl,
+                                              part.slab)
+
+
+def check_tile_lists(tl, bnl, shape, TB, slab=None):
+    """Every invariant K3 relies on, against a brute-force scan of the
+    nodes at local flat indices `bnl` of a grid of `shape`."""
+    from pffdtd_tpu_torch.engine.data import tile_bounds
+    N = np.array(shape, np.int64)
+    spans = [(1, n - 1, 1, n - 1) for n in N]
+    if slab is not None:
+        spans[0] = (*slab.owned, *slab.computable)
+    box, nt = tl.box, tl.ntiles
+    W = box[0] + 2 * (TB - 1)
+    Rz = box[2] + 2 * TB
+    c = np.stack([bnl // (N[1] * N[2]), (bnl // N[2]) % N[1], bnl % N[2]])
+    ntot = int(np.prod(nt))
+    assert tl.ptr[0] == 0 and tl.ptr[-1] == tl.node.size
+    assert (np.diff(tl.ptr) >= 0).all()
+    assert tl.rptr.size == ntot * (W + 1)
+    owners = np.zeros(bnl.size, np.int64)
+    for t in np.ndindex(*nt):
+        tid = (t[0] * nt[1] + t[1]) * nt[2] + t[2]
+        e0, e1 = tl.ptr[tid], tl.ptr[tid + 1]
+        rp = tl.rptr[tid * (W + 1):(tid + 1) * (W + 1)]
+        # per-row pointers: monotone, covering the tile's entries, each
+        # range holding exactly its row
+        assert rp[0] == e0 and rp[-1] == e1 and (np.diff(rp) >= 0).all()
+        o = [tile_bounds(t[a], box[a], N[a], 0, spans[a]) for a in range(3)]
+        for k in range(W):
+            assert (tl.row[rp[k]:rp[k + 1]] == o[0][0] - (TB - 1) + k).all()
+        # the entries are the nodes within TB-1 of the owned box
+        inside = np.ones(bnl.size, bool)
+        ring = np.zeros(bnl.size, np.int64)
+        for a in range(3):
+            lo, hi = tile_bounds(t[a], box[a], N[a], TB - 1, spans[a])
+            inside &= (c[a] >= lo) & (c[a] < hi)
+            ring = np.maximum(ring, np.maximum(o[a][0] - c[a],
+                                               c[a] - o[a][1] + 1))
+        sl = slice(e0, e1)
+        assert np.array_equal(np.sort(tl.node[sl]), np.flatnonzero(inside))
+        # ring: the step reach (step s takes ring <= TB-1-s)
+        assert np.array_equal(tl.ring[sl], ring[tl.node[sl]])
+        assert (tl.ring[sl] <= TB - 1).all()
+        # row and y-z offset give back the flat index
+        y = tl.yz[sl] // Rz + o[1][0] - TB
+        z = tl.yz[sl] % Rz + o[2][0] - TB
+        assert np.array_equal((tl.row[sl] * N[1] + y) * N[2] + z,
+                              bnl[tl.node[sl]])
+        assert (tl.yz[sl] >= 0).all()
+        assert (tl.yz[sl] < (box[1] + 2 * TB) * Rz).all()
+        owners[tl.node[sl][tl.owned[sl]]] += 1
+    # every node on an owned row is owned by exactly one tile
+    own_rows = ((c[0] >= spans[0][0]) & (c[0] < spans[0][1]))
+    assert (owners == own_rows).all()
+
+
+@pytest.mark.parametrize("D", [None, 2])
+@pytest.mark.parametrize("TB", range(2, 9))
+@pytest.mark.parametrize("name", ["cart-tr", "fcc-fold-desc"])
+def test_tile_lists_rows_offsets_rings(name, TB, D):
+    d, bnl, slab, tl = _list_scene(name, TB, D)
+    assert tl.TB == TB and bnl.size > 0
+    shape = d.grid.shape if slab is None else slab.shape
+    check_tile_lists(tl, np.asarray(bnl, np.int64), shape, TB, slab)
+
+
+@settings(max_examples=25, deadline=None)
+@given(dims=hs.tuples(*[hs.floats(0.6, 1.6)] * 3),
+       fcc=hs.booleans(), TB=hs.integers(2, 8),
+       box=hs.tuples(hs.integers(1, 9), hs.integers(1, 9),
+                     hs.integers(1, 5)),
+       slabs=hs.sampled_from([None, 2, 3]))
+def test_tile_lists_random_boxes(dims, fcc, TB, box, slabs):
+    """Random box scenes, tiles (By, Bz = 32m - 2TB) and chunks, on the
+    whole grid or a middle slab."""
+    from pffdtd_tpu_torch.engine.data import build_tile_lists
+    from pffdtd_tpu_torch.parallel.partition import partition, x_slabs
+    from pffdtd_tpu_torch.scene import pad_x_interior
+    sim = scene.synthetic_box_sim(*dims, h=0.1, Nt=4, fcc=fcc,
+                                  lossy=True, insig_type="hann10",
+                                  diff_source=False)
+    Cx, By, m = box
+    Bz = 32 * m - 2 * TB
+    if slabs is None:
+        d = EngineData(sim.consts, sim.vox, sim.comms, sim.mats)
+        tl = build_tile_lists(d.bnl_ixyz, d.grid, (Cx, By, Bz), TB)
+        check_tile_lists(tl, d.bnl_ixyz, d.grid.shape, TB)
+        return
+    sim = pad_x_interior(sim, slabs)
+    d = EngineData(sim.consts, sim.vox, sim.comms, sim.mats)
+    sls = x_slabs(d.grid, slabs, TB)
+    if sls[0].S < 2 * TB:
+        return
+    part = partition(d, sls)[slabs // 2]
+    tl = build_tile_lists(part.bnl, d.grid, (Cx, By, Bz), TB, part.slab)
+    check_tile_lists(tl, part.bnl, part.slab.shape, TB, part.slab)

@@ -10,7 +10,12 @@ and the tile lists K3 reads.
   Nt not a multiple of TB (the tail steps run), receivers and final state;
 - `build_tile_lists`: every lossy node is owned by exactly one tile, and
   each tile's list holds exactly the nodes within TB-1 of its owned box,
-  with their offsets and rings, against a brute-force scan.
+  with their offsets and rings, against a brute-force scan (the rows,
+  row pointers and y-z offsets K3 reads: tests/test_torch_data.py);
+- `plan_tiles`: a block for every TB 2..8, fp32/fp64 and 6/12-pt stencil
+  within the H100's 227 KB of shared memory, raising only where nothing
+  fits; `plan_chunk`: evened-out chunks, shorter on a slab than on the
+  whole grid.
 """
 
 import numpy as np
@@ -22,9 +27,10 @@ from pffdtd_tpu.prep import fold_fcc_sim, rotate_sim, sort_sim
 
 import test_pallas_tb as tpt
 from pffdtd_tpu_torch import scene
-from pffdtd_tpu_torch.engine.data import EngineData, build_tile_lists, \
-    tile_bounds
+from pffdtd_tpu_torch.engine.data import EngineData, GridSpec, \
+    build_tile_lists, tile_bounds
 from pffdtd_tpu_torch.engine.torch_engine import TorchEngine, pick_route
+from pffdtd_tpu_torch.kernels import tb as ktb
 
 torch.set_num_threads(2)
 
@@ -96,7 +102,10 @@ def test_tb_and_pair_equal_step_bitwise(name, dtype):
 
 
 def test_route_rules():
+    # the measured rule on the H100: K3 at its best TB is slower per step
+    # than K1 + K2, so "auto" takes the single step (pick_route's docstring)
     assert pick_route("auto") == ("step", None)
+    assert pick_route("auto", 8) == ("step", None)
     assert pick_route("step", 5) == ("step", None)
     assert pick_route("pair", 5) == ("tb", 2)
     assert pick_route("tb") == ("tb", 3)
@@ -138,3 +147,65 @@ def test_tile_lists_cover_regions(name, TB, box):
         assert np.array_equal(tl.off[sl], off[want])
         owners[tl.node[sl][tl.owned[sl]]] += 1
     assert (owners == 1).all()
+
+
+GRIDS = {"headline": (792, 310, 510), "small": (20, 14, 12)}
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("fcc", [0, 2])
+@pytest.mark.parametrize("TB", range(2, 9))
+def test_planner_fits_the_card(TB, fcc, itemsize):
+    """Every TB, dtype and stencil plans a block that fits 227 KB of shared
+    memory, with a row width the kernel is built for and its rows in
+    kMaxRows a thread."""
+    for shape in GRIDS.values():
+        g = GridSpec(*shape, fcc_flag=fcc)
+        tl = ktb.plan_tiles(g, TB, itemsize, np.zeros(0, np.int64))
+        Cx, By, Bz = tl.box
+        Rz, Ry = Bz + 2 * TB, By + 2 * TB
+        assert Rz in ktb.ROW_WIDTHS[itemsize]
+        rows = shape[0] - 2
+        # MIN_CHUNK .. CHUNK rows, evened out over the chunks
+        assert min(ktb.MIN_CHUNK, rows) <= 2 * Cx and Cx <= ktb.CHUNK
+        assert -(-rows // -(-rows // Cx)) == Cx
+        assert ktb.smem_bytes(By, Bz, TB, itemsize, 2 if fcc else 1) \
+            <= ktb.SMEM_LIMIT
+        nthr = ktb.tile_threads(tl.box, TB)
+        assert 0 < nthr <= ktb.MAX_THREADS and nthr % Rz == 0
+        assert nthr // Rz * ktb.MAX_ROWS >= Ry
+
+
+@pytest.mark.parametrize("TB", [2, 3, 8])
+def test_plan_chunk_shortens_chunks_on_short_extents(TB):
+    """Chunks are evened out over the extent within MIN_CHUNK .. CHUNK, and
+    shorter on a 198-row slab than on the 790 rows of the whole grid."""
+    for per_sm in (1, 2):
+        whole = ktb.plan_chunk(790, 198, TB, per_sm)
+        slab = ktb.plan_chunk(198, 198, TB, per_sm)
+        assert slab < whole
+        for rows, cx in ((790, whole), (198, slab)):
+            n = -(-rows // cx)
+            assert ktb.MIN_CHUNK <= 2 * cx and cx <= ktb.CHUNK
+            assert n * cx - rows < n
+    assert ktb.plan_chunk(5, 1, TB, 2) == 5
+    assert ktb.plan_chunk(10 ** 5, 10 ** 4, TB, 1) == ktb.CHUNK
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("TB", [2, 8])
+def test_planner_raises_only_where_nothing_fits(monkeypatch, TB, itemsize):
+    """The smallest tile (one row of a warp's width) plans at exactly its
+    bytes and not one byte under; TB out of 2..8 raises."""
+    g = GridSpec(*GRIDS["small"], fcc_flag=2)
+    least = ktb.smem_bytes(1, 32 - 2 * TB, TB, itemsize, 2)
+    monkeypatch.setattr(ktb, "SMEM_SM", 2 * (least + 1024) - 2)
+    monkeypatch.setattr(ktb, "SMEM_LIMIT", least)
+    assert ktb.plan_tiles(g, TB, itemsize, np.zeros(0, np.int64)).box[1:] \
+        == (1, 32 - 2 * TB)
+    monkeypatch.setattr(ktb, "SMEM_LIMIT", least - 1)
+    with pytest.raises(ValueError):
+        ktb.plan_tiles(g, TB, itemsize, np.zeros(0, np.int64))
+    for bad in (1, 9):
+        with pytest.raises(ValueError):
+            ktb.plan_tiles(g, bad, itemsize, np.zeros(0, np.int64))
