@@ -55,6 +55,26 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    single-device rate of the same route on the same grid), the exchange
    time per step (CUDA events around the copies, one extra run) and the
    engine's peak device memory.  Each engine is freed before the next.
+6. Energy accounting, checkpoint/resume, the per-chunk hook and the modal
+   filter: (a) the small fp64 scenes with energy on (K1 + K2, launch counts
+   checked): balance < 1e-10, E_lost[-1] > 0, H_tot, E_lost and E_in
+   <= 1e-12 of their largest magnitude against the plain path on the card,
+   receivers bitwise equal to the energy-off run; (b) the headline scene
+   with energy on, 128 steps in fp32 (MVPS beside phase 4's step route,
+   receivers bitwise equal to it, 128 K1 and 128 K2 launches) and in fp64
+   (MVPS beside the fp64 step route, balance < 1e-9, the JAX package's bar
+   for a real room), each with its peak device memory; a checkpoint of the
+   fp32 step route at headline size written and resumed (seconds, GB,
+   receivers bitwise equal); (c) on the folded FCC scene in fp64, the step,
+   tb (TB = 3), pair and energy routes run to step 23 in chunks of 5 with a
+   checkpoint every 2 (step 23 on the TB routes: no multiple of TB), then
+   resumed in a fresh engine to 29: receivers (and energies) bitwise equal
+   to the uninterrupted run; (d) in those resumed runs a hook records the
+   steps it sees, which must be the chunk ends; (e) the modal air-absorption
+   filter on the card against its numpy loop, <= 1e-12 relative, on the
+   headline receivers padded to 4,800 samples, then timed alone on 2 x
+   48,000 samples (1 s at 48 kHz).  The checkpoints go to a temporary
+   directory inside the checkout, removed after use.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  The work sits under `__main__`, so importing
 this file runs nothing.
@@ -65,12 +85,16 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from pffdtd_tpu_torch.analysis.air_abs import (apply_modal_filter,
+                                               apply_modal_filter_plain)
 from pffdtd_tpu_torch.engine.torch_engine import TorchEngine, pick_route
 from pffdtd_tpu_torch.io.simdata import MMb
 from pffdtd_tpu_torch.kernels import _build
@@ -486,6 +510,157 @@ def counts_of(eng, D, g):
     return (0, D * (NT % TB), 0, 0, D * (NT % TB), D * (NT // TB))
 
 
+def energy_rows_equal(a, b):
+    return all(np.array_equal(getattr(a, k), getattr(b, k))
+               for k in ("u_out", "H_tot", "E_lost", "E_in"))
+
+
+def phase6(sim, eng, u_k, t_k, small):
+    """Energy accounting, checkpoint/resume, the per-chunk hook and the
+    modal filter on the card.  eng: phase 4's fp32 step engine on the
+    headline scene, u_k and t_k its receivers and best time."""
+    g = eng.data.grid
+    npts = g.Nx * g.Ny * g.Nz
+
+    # (a) energy on the small fp64 scenes: K1 + K2 against the plain path
+    for n, s in small.items():
+        ek = engine(s, np.float64, energy_on=True)
+        reset_counts()
+        uk = ek.run(verbose=False)
+        c = counts()
+        require(c == (ek.Nt, ek.Nt, 0, 0, 0, 0),
+                f"{n} energy route launches {c}, want {ek.Nt} K1 + K2")
+        ep = engine(s, np.float64, energy_on=True, use_kernels=False)
+        ep.run(verbose=False)
+        bal = np.abs(ek.energy_balance()).max()
+        errs = {a: float(np.abs(getattr(ek, a) - getattr(ep, a)).max()
+                         / np.abs(getattr(ep, a)).max())
+                for a in ("H_tot", "E_lost", "E_in")}
+        same = np.array_equal(uk, engine(s, np.float64).run(verbose=False))
+        print(f"[6a] {n} fp64 energy: balance {bal:.3e}, E_lost[-1] "
+              f"{ek.E_lost[-1]:.6e}, vs plain path {errs}, receivers "
+              f"bitwise equal to the energy-off run {same}", flush=True)
+        require(bal < 1e-10 and ek.E_lost[-1] > 0,
+                f"{n}: energy balance {bal}, E_lost[-1] {ek.E_lost[-1]}")
+        require(max(errs.values()) <= 1e-12, f"{n}: energies vs plain {errs}")
+        require(same, f"{n}: the energy route changed the receivers")
+
+    # (b) energy on the headline scene, fp32 then fp64
+    for dt in (np.float32, np.float64):
+        name = np.dtype(dt).name
+        if dt == np.float32:
+            u_off, t_off = u_k, t_k
+        else:      # the fp64 step route, energy off
+            e = engine(sim, dt)
+            u_off = e.run(nt=NT, verbose=False)
+            t_off = e.elapsed
+            del e
+            torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        e = engine(sim, dt, energy_on=True)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        u = e.run(nt=NT, verbose=False)
+        c = counts()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        bal = np.abs(e.energy_balance()).max()
+        same = np.array_equal(u, u_off)
+        print(f"[6b] headline {name} energy route: "
+              f"{npts * NT / e.elapsed / 1e6:.1f} MVPS ({e.elapsed:.4f} s) "
+              f"against the step route's {npts * NT / t_off / 1e6:.1f} "
+              f"({t_off:.4f} s); launches (K1 .. K6) {c}; balance "
+              f"{bal:.3e}; E_lost[-1] {e.E_lost[-1]:.6e}; receivers "
+              f"bitwise equal to the step route {same}; peak device memory "
+              f"{peak:.2f} GB (the engine's own)", flush=True)
+        require(c == (NT, NT, 0, 0, 0, 0), f"{name} energy launches {c}")
+        require(np.isfinite(e.H_tot).all() and e.E_in[-1] > 0,
+                f"{name}: energies not finite or no input energy")
+        require(same, f"headline {name}: energy route receivers differ")
+        if dt == np.float64:
+            require(bal < 1e-9, f"headline fp64 energy balance {bal}")
+        del e
+        torch.cuda.empty_cache()
+
+    # checkpoint write and read at headline size (fp32 step route)
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) \
+            as tmp:
+        ck = Path(tmp) / "state.npz"
+        u = eng.run(nt=NT, verbose=False, chunk=NT, checkpoint_every=1,
+                    checkpoint_path=ck)
+        write_s, size = eng.host_seconds, ck.stat().st_size
+        t0 = time.perf_counter()
+        ur = eng.run(nt=NT, verbose=False, checkpoint_path=ck, resume=True)
+        read_s = time.perf_counter() - t0
+    print(f"[6c] headline checkpoint: {size / 1e9:.3f} GB written in "
+          f"{write_s:.3f} s, resumed (read) in {read_s:.3f} s; receivers "
+          f"bitwise equal {np.array_equal(u, u_k)}, "
+          f"{np.array_equal(ur, u_k)}", flush=True)
+    require(np.array_equal(u, u_k) and np.array_equal(ur, u_k),
+            "headline checkpoint run or resume changed the receivers")
+
+    # (c) resume at a step that is no multiple of TB, small fp64 scene;
+    # (d) the hook sees the chunk ends
+    s = small["fcc_folded"]
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) \
+            as tmp:
+        for kw in ({"backend": "step"}, {"backend": "tb", "tb": 3},
+                   {"backend": "pair"}, {"energy_on": True}):
+            ck = Path(tmp) / "state.npz"
+            a = engine(s, np.float64, **kw)
+            a.run(nt=NT_SMALL, verbose=False)
+            engine(s, np.float64, **kw).run(
+                nt=23, verbose=False, chunk=5, checkpoint_every=2,
+                checkpoint_path=ck)
+            with np.load(ck) as z:
+                n0 = int(z["n"])
+            seen = []
+
+            def hook(n, state):
+                seen.append((n, float(state[1].abs().max())))
+
+            b = engine(s, np.float64, **kw)
+            b.run(nt=NT_SMALL, verbose=False, chunk=5, checkpoint_path=ck,
+                  resume=True, on_chunk=hook)
+            same = (energy_rows_equal(a, b) if b.energy_on
+                    else np.array_equal(a.u_out, b.u_out))
+            TB = b.TB or 1
+            c = -(-5 // TB) * TB
+            ends = list(range(n0 + c, NT_SMALL, c)) + [NT_SMALL]
+            print(f"[6c] fcc_folded fp64 {kw}: checkpoint at step {n0}, "
+                  f"resumed to {NT_SMALL}: bitwise equal {same}; [6d] hook "
+                  f"steps {[n for n, _ in seen]} (want {ends}), max |u^n| "
+                  f"{seen[-1][1]:.6e}", flush=True)
+            require(same, f"{kw}: the resumed run differs")
+            require([n for n, _ in seen] == ends, f"{kw}: hook steps {seen}")
+            require(seen[-1][1] == float(b.state[1].abs().max()) > 0,
+                    f"{kw}: the hook saw another state")
+
+    # (e) the modal air-absorption filter: the headline receivers (their 8
+    # trilinear taps weighted, as `process` does) padded to 4,800 samples,
+    # on the card vs the numpy loop; then 2 x 48,000 samples alone
+    cm = sim.comms
+    taps = u_k[cm.out_reorder].reshape(*cm.out_alpha.shape, -1)
+    r = np.sum(taps * cm.out_alpha[..., None], axis=1)
+    x = np.zeros((r.shape[0], 4800))
+    x[:, :NT] = r
+    t0 = time.perf_counter()
+    y = apply_modal_filter(x, 48000.0, 20.0, 50.0, device="cuda")
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    yn = apply_modal_filter_plain(x, 48000.0, 20.0, 50.0)
+    t_np = time.perf_counter() - t0
+    err = float(np.abs(y - yn).max() / np.abs(yn).max())
+    x = np.random.default_rng(SEED).standard_normal((2, 48000))
+    t0 = time.perf_counter()
+    y = apply_modal_filter(x, 48000.0, 20.0, 50.0, device="cuda")
+    t_48k = time.perf_counter() - t0
+    print(f"[6e] modal filter {r.shape[0]} x 4800: card {t_card:.3f} s vs "
+          f"the numpy loop {t_np:.3f} s, max rel err {err:.3e}; 2 x 48000 "
+          f"on the card {t_48k:.3f} s", flush=True)
+    require(err <= 1e-12, f"modal filter vs numpy loop: {err}")
+    require(np.isfinite(y).all(), "modal filter at 48000: not finite")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False: this smoke "
@@ -688,6 +863,7 @@ def main():
     del eng_tb, eng_pair
     torch.cuda.empty_cache()
     p5 = phase5(sim, gen, single, roof)
+    phase6(sim, eng, u_k, t_k, small)
 
     k2_bytes = eng.data.Nbl * (4 * MMb * isz + 8 + isz + 4 + 3 * isz)
     k4_bytes = 2 * k4["size_mb"] * (1 << 20)

@@ -6,14 +6,16 @@ the leapfrog, the lossy-boundary ODE, Engquist-Majda ABCs, sources and
 receivers) with PyTorch tensors on the host side and hand-written CUDA
 kernels on the card, one step per launch (K1 + K2) or TB steps per launch
 (K3), on one device or as x-slabs over a list of devices (K5, K6: the
-shard modes of K1 and K3).  Nothing here imports `jax` or `pffdtd_tpu`,
-and `h5py` is imported only inside the sim-folder reader and writer.
+shard modes of K1 and K3).  Nothing here imports `jax` or `pffdtd_tpu`;
+`h5py`, `matplotlib` and `scipy.signal` are imported only inside the
+functions that need them.
 
 Subpackages
 -----------
 - ``io``         numpy-only sim-folder dataclasses + lazy HDF5 read/write
 - ``engine``     coefficients, host-side static arrays and tile lists, the
-                 TorchEngine runner
+                 TorchEngine runner (chunks, hook, checkpoint/resume) and
+                 the energy functionals
 - ``kernels``    K1 (stencil + ABC), K2 (lossy boundary), K3 (TB steps per
                  sweep), K4 (bandwidth probe), K5 and K6 (K1 and K3 on an
                  x-slab) wrappers, each beside its plain PyTorch version,
@@ -25,7 +27,10 @@ Subpackages
 - ``consts``, ``comms``, ``utils``, ``voxelizer``
                  copies of the JAX package's numpy-only helpers
 - ``convert``    state carried across from the JAX engines' layouts
-- ``cli``        ``python -m pffdtd_tpu_torch.cli sim --data_dir DIR``
+- ``viz``        wavefield slices, the live view, animation frames, RIRs
+- ``analysis``   air absorption (the modal filter on a device) and the
+                 ``process`` stage
+- ``cli``        ``python -m pffdtd_tpu_torch.cli sim|process --data_dir DIR``
 """
 
 __version__ = "0.3.0"

@@ -71,6 +71,19 @@ def state_from_jax_xla(carry, jax_data, data, device="cpu"):
             t(vh.T), t(gh.T)]
 
 
+def checkpoint_from_jax(jax_ckpt, jax_data, eng, path):
+    """A `JaxEngine` XLA-route checkpoint (`_save_checkpoint`: n, carry0..3
+    = u0, u1, vh (Nbl, MMb), gh, ys00 = the receiver rows so far) -> the
+    port's checkpoint for `eng` (a TorchEngine with energy off), written to
+    `path` through `eng.save_checkpoint`."""
+    with np.load(jax_ckpt) as z:
+        n = int(z["n"])
+        state = state_from_jax_xla([z[f"carry{i}"] for i in range(4)],
+                                   jax_data, eng.data, eng.device)
+        out = torch.from_numpy(z["ys00"].astype(eng.data.dtype))
+    eng.save_checkpoint(path, n, state, out.to(eng.device))
+
+
 def state_from_tiles(x_tiles, node_slot) -> np.ndarray:
     """Packed Pallas states (n, MMb, T) -> per-node (MMb, Nbl)."""
     x = np.asarray(x_tiles)

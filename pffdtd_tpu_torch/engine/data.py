@@ -274,6 +274,14 @@ class EngineData:
         self.coef_table = self.mc.table(self.dtype)      # (Nmat+1, 4, MMb)
         self.beta = self.mc.beta.astype(self.dtype)      # (Nmat+1,)
 
+        # energy accounting (engine/energy.py): the raw D | E | F branch
+        # rows per material, indexed by mat_bnl like coef_table, and the
+        # constants of the functionals (jax_engine.py:379-395)
+        self.def_table = np.stack([self.mc.D, self.mc.E, self.mc.F],
+                                  1).astype(self.dtype)  # (Nmat+1, 3, MMb)
+        self.V_fac = 2.0 if self.fcc else 1.0
+        self.e_h, self.e_c, self.e_Ts = consts.h, consts.c, consts.Ts
+
         # sources / receivers
         self.in_ixyz = np.asarray(comms.in_ixyz, np.int64)
         self.out_ixyz = np.asarray(comms.out_ixyz, np.int64)

@@ -36,18 +36,34 @@ kernels; on the CPU they run their plain PyTorch versions.
 `use_kernels=False` calls the plain versions on any device (the card's
 comparison path).  The engine runs on the card unless `device="cpu"` is
 passed, and never falls back to the CPU.
+
+`energy_on=True` (the step route only, as the JAX engine asserts,
+jax_engine.py:448, 554) evaluates the energy functionals of
+`engine.energy` around every step: `run()` then fills `H_tot`, `E_lost` and
+`E_in`, and `energy_balance()` gives the balance the JAX engine's does.
+`run()` also takes JAX's per-chunk hook and checkpoint/resume
+(jax_engine.py:1181-1293): a checkpoint is an `.npz` of named arrays, the
+state at a chunk's end with the receiver (and energy) rows so far, and the
+scene's grid, dtype and route, which a resume must match.
 """
 
 from __future__ import annotations
 
+import os
 import time
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from pffdtd_tpu_torch.engine.data import EngineData, abc_layer_mask, \
     mirror_index
+from pffdtd_tpu_torch.engine.energy import (EnergyScene, hamiltonian,
+                                            input_increment, laplacian,
+                                            loss_increment)
 from pffdtd_tpu_torch.io.simdata import MMb, read_sim_folder, write_outputs
+from pffdtd_tpu_torch.utils import rel_diff
 from pffdtd_tpu_torch.kernels.boundary import boundary_update, \
     boundary_update_plain
 from pffdtd_tpu_torch.kernels.stencil import stencil_step, stencil_step_plain
@@ -84,7 +100,7 @@ class TorchEngine:
     def __init__(self, folder=None, *, consts=None, vox=None, comms=None,
                  mats=None, dtype=np.float32, device="cuda",
                  backend: str = "auto", tb: int = 3,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, energy_on: bool = False):
         if folder is not None:
             sim = read_sim_folder(folder)
             consts, vox, comms, mats = sim.consts, sim.vox, sim.comms, \
@@ -100,6 +116,11 @@ class TorchEngine:
         self.Nt = d.Nt
         self.use_kernels = use_kernels
         self.backend, self.TB = pick_route(backend, tb)
+        if energy_on and self.TB is not None:
+            raise ValueError(f"energy_on: the step route only (backend "
+                             f"{backend!r} takes TB={self.TB} steps a "
+                             f"sweep)")
+        self.energy_on = energy_on
         if d.Nbl and abc_layer_mask(d.bnl_ixyz, d.grid).any():
             raise ValueError("a lossy boundary node lies on an ABC layer: "
                              "the kernels apply the ABC before the lossy "
@@ -117,6 +138,11 @@ class TorchEngine:
         self.beta = up(d.beta)
         self.in_ixyz = up(d.in_ixyz)
         self.out_ixyz_f = up(mirror_index(d.out_ixyz, d.grid))
+        self.energy_scene = None
+        if energy_on:
+            self.energy_scene = EnergyScene.make(
+                d, adj=self.adj, ssaf=self.ssaf, mat=self.mat,
+                in_ixyz=self.in_ixyz)
         self.tb_scene = None
         if self.TB is not None:
             self.tb_scene = TBScene.make(
@@ -173,25 +199,64 @@ class TorchEngine:
         spare[:] = [u1, vh, gh]
         return state
 
+    def step_energy(self, state, sig_n, out_row, en):
+        """`step` with the energy terms around it; returns H[n] (0-d).
+
+        en: the run's energy carry (`_energy_carry`): Lu = L u^{n-1} on
+        entry and L u^n on return, the accumulators E_lost and E_in (0-d,
+        updated in place), and vh_prev, a scratch for the branch states
+        before the step (K2 updates them in place)."""
+        es = self.energy_scene
+        u0, u1, _, vh, gh = state
+        H = hamiltonian(es, u0, u1, en.Lu, vh, gh)
+        u0_in = u0.reshape(-1).index_select(0, self.in_ixyz)
+        en.vh_prev.copy_(vh)
+        self.step(state, sig_n, out_row)
+        # the step rotated the buffers: u0 is untouched, u1 is now state[0]
+        laplacian(es, u1, en.Lu)
+        en.E_lost += loss_increment(es, state[1], u0, state[3], en.vh_prev)
+        en.E_in += input_increment(es, state[1], u0_in, sig_n)
+        return H
+
+    def _energy_carry(self, nt):
+        """L u^{n-1}, the accumulators, the vh scratch and the (nt,) rows
+        of H, E_lost and E_in (post-step accumulations), all on device."""
+        g, nbl = self.data.grid.shape, self.data.Nbl
+        return SimpleNamespace(
+            Lu=self._zeros(*g), E_lost=self._zeros(), E_in=self._zeros(),
+            vh_prev=self._zeros(MMb, nbl), H_rows=self._zeros(nt),
+            E_lost_rows=self._zeros(nt), E_in_rows=self._zeros(nt))
+
     # ---------------------------------------------------------------- run
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def run(self, nt: int | None = None, verbose: bool = True,
-            chunk: int | None = None):
-        """Run nt steps (default Nt) from the zero state; returns u_out
-        (Nr, nt) float64, scaled back by infac; the final state stays in
-        `self.state`.
+            chunk: int | None = None, checkpoint_every: int | None = None,
+            checkpoint_path=None, resume: bool = False, on_chunk=None):
+        """Run to step nt (default Nt); returns u_out (Nr, nt) float64,
+        scaled back by infac; the final state stays in `self.state`.
 
-        The TB route runs nt // TB sweeps, then the nt % TB remaining steps
-        with K1 + K2.  (The JAX engine instead zero-pads the signal to whole
-        sweeps and trims the output, jax_engine.py:1044-1056: u_out is the
-        same either way, and here the final state is exactly step nt.)
+        The steps run in chunks of `chunk` steps (default: one chunk),
+        rounded up to a whole number of sweeps on the TB route, so that a
+        chunk ends on a sweep boundary (JAX aligns its chunks to its step
+        group, jax_engine.py:1213-1215).  A TB-route chunk runs its whole
+        sweeps, then its remaining steps with K1 + K2.  (The JAX engine
+        instead zero-pads the signal to whole sweeps and trims the output,
+        jax_engine.py:1044-1056: u_out is the same either way, and here
+        the final state is exactly step nt.)  After each chunk:
+        - on_chunk(n, state) is called, n the steps done, state[1] = u^n;
+        - with verbose, a progress line is printed (except after the last);
+        - every `checkpoint_every` chunks the state is saved to
+          `checkpoint_path` (`save_checkpoint`).
+        Only these wait for the device: without them the loop never does.
+        resume=True with an existing `checkpoint_path` restarts from the
+        step it holds (`load_checkpoint`), keeping its receiver rows.
 
-        chunk: with verbose, print a progress line each time the step count
-        passes a multiple of `chunk` (each line waits for the device;
-        without chunk the loop never does)."""
+        `self.elapsed` times the loop without the hook and the checkpoint
+        I/O, which `self.host_seconds` holds; `self.mvps` is over the steps
+        this call ran."""
         d = self.data
         g = d.grid
         npts = g.Nx * g.Ny * g.Nz
@@ -201,43 +266,154 @@ class TorchEngine:
                 self.device)                                 # (nt, Ns)
         out = torch.zeros((nt, d.out_ixyz.size), dtype=self.dtype,
                           device=self.device)
+        en = self._energy_carry(nt) if self.energy_on else None
         state = self.init_state()
+        n0 = 0
+        if resume and checkpoint_path and Path(checkpoint_path).exists():
+            n0 = self.load_checkpoint(checkpoint_path, state, out, en)
+            if verbose:
+                print(f"--ENGINE(torch): resumed at step {n0}")
         TB = self.TB or 1
         spare = None
         if TB > 1:   # the sweep's fourth grid and second vh, gh
             spare = [self._zeros(*g.shape), self._zeros(MMb, d.Nbl),
                      self._zeros(MMb, d.Nbl)]
+        chunk = -(-(chunk or max(nt - n0, 1)) // TB) * TB
         self._sync()
         t0 = tb = time.perf_counter()
-        n = 0
+        t_out = 0.0       # the hook's and the checkpoints' host time
+        n, blocks = n0, 0
         while n < nt:
-            k = TB if n + TB <= nt else 1
-            if k > 1:
-                self.sweep(state, spare, sigs, out, n)
-            else:
-                self.step(state, sigs[n], out[n])
-            n += k
-            if verbose and chunk and n // chunk > (n - k) // chunk \
-                    and n < nt:
-                self._sync()
-                t = time.perf_counter()
+            c0, end = n, min(n + chunk, nt)
+            while n < end:
+                if n + TB <= end and TB > 1:
+                    self.sweep(state, spare, sigs, out, n)
+                    n += TB
+                elif en is not None:
+                    en.H_rows[n] = self.step_energy(state, sigs[n], out[n],
+                                                    en)
+                    en.E_lost_rows[n] = en.E_lost
+                    en.E_in_rows[n] = en.E_in
+                    n += 1
+                else:
+                    self.step(state, sigs[n], out[n])
+                    n += 1
+            blocks += 1
+            ckpt = (checkpoint_every and checkpoint_path
+                    and blocks % checkpoint_every == 0)
+            show = verbose and n < nt
+            if not (on_chunk or ckpt or show):
+                continue
+            self._sync()
+            t = time.perf_counter()
+            if show:
                 print(f"--ENGINE(torch): {n}/{nt} [{100 * n / nt:.0f}%] "
-                      f"{npts * chunk / (t - tb) / 1e6:.1f} MVPS inst, "
-                      f"{npts * n / (t - t0) / 1e6:.1f} MVPS avg",
-                      flush=True)
-                tb = t
+                      f"{npts * (n - c0) / (t - tb) / 1e6:.1f} MVPS inst, "
+                      f"{npts * (n - n0) / (t - t0 - t_out) / 1e6:.1f} "
+                      f"MVPS avg", flush=True)
+            if on_chunk is not None:
+                on_chunk(n, state)
+            if ckpt:
+                self.save_checkpoint(checkpoint_path, n, state, out, en)
+            tb = time.perf_counter()
+            t_out += tb - t
         self._sync()
-        self.elapsed = time.perf_counter() - t0
+        self.elapsed = time.perf_counter() - t0 - t_out
+        self.host_seconds = t_out
         self.state = state
         self.u_out = np.float64(out.T.cpu().numpy()) * d.infac
-        self.mvps = npts * nt / self.elapsed / 1e6
+        if en is not None:   # energies scale back by infac**2
+            e = lambda t: np.float64(t.cpu().numpy()) * d.infac ** 2
+            self.H_tot, self.E_lost, self.E_in = (
+                e(en.H_rows), e(en.E_lost_rows), e(en.E_in_rows))
+        self.mvps = npts * (nt - n0) / self.elapsed / 1e6
         if verbose:
             route = self.backend if self.TB is None else \
                 f"{self.backend} TB={self.TB}"
-            print(f"--ENGINE(torch): {nt} steps over {npts / 1e6:.2f} Mvox "
-                  f"on {self.device} ({route}) in {self.elapsed:.3f}s -> "
-                  f"{self.mvps:.1f} MVPS")
+            print(f"--ENGINE(torch): {nt - n0} steps over {npts / 1e6:.2f} "
+                  f"Mvox on {self.device} ({route}) in {self.elapsed:.3f}s "
+                  f"-> {self.mvps:.1f} MVPS")
         return self.u_out
+
+    def energy_balance(self):
+        """(H_tot + E_lost - E_in) in units of E_in's binary exponent, at
+        the steps with input energy; the JAX engine's `energy_balance`.
+
+        The rows are post-step accumulations, and H_tot[n] pairs with the
+        pre-step ones (the oracle's indexing), hence the shift."""
+        if not self.energy_on:
+            raise ValueError("energy_balance needs TorchEngine(energy_on="
+                             "True)")
+        e_in = np.r_[0.0, self.E_in[:-1]]
+        e_lost = np.r_[0.0, self.E_lost[:-1]]
+        live = e_in > 0
+        return rel_diff((self.H_tot + e_lost)[live], e_in[live])
+
+    # ------------------------------------------------------- checkpointing
+    def _scene_key(self) -> dict:
+        """What a checkpoint must match to be resumed by this engine."""
+        d = self.data
+        g = d.grid
+        return {"grid": np.array([g.Nx, g.Ny, g.Nz, g.fcc_flag], np.int64),
+                "dtype": np.array(d.dtype.name),
+                "route": np.array(self.backend if self.TB is None
+                                  else f"tb{self.TB}"),
+                "energy": np.array(bool(self.energy_on)),
+                "counts": np.array([d.Nbl, d.in_ixyz.size, d.out_ixyz.size],
+                                   np.int64)}
+
+    def save_checkpoint(self, path, n, state, out, en=None):
+        """Write the state after step n to `path` (.npz of named arrays):
+        n, u_prev = u^{n-1}, u_curr = u^n (halos as they are: the flips
+        are virtual), vh, gh, the receiver rows out[:n], with energy on
+        Lu_prev = L u^{n-1} and the rows of H, E_lost and E_in, and the
+        scene key.  Each tensor is copied to the host once; the file is
+        written beside `path` and renamed over it, so a run killed while
+        writing keeps its previous checkpoint."""
+        host = lambda t: t.cpu().numpy()
+        arrays = {"n": np.array(n, np.int64), "u_prev": host(state[0]),
+                  "u_curr": host(state[1]), "vh": host(state[3]),
+                  "gh": host(state[4]), "out": host(out[:n]),
+                  **self._scene_key()}
+        if en is not None:
+            arrays.update(Lu_prev=host(en.Lu), H=host(en.H_rows[:n]),
+                          E_lost=host(en.E_lost_rows[:n]),
+                          E_in=host(en.E_in_rows[:n]))
+        path = Path(path)
+        tmp = path.with_name(path.name + ".tmp")
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)
+
+    def load_checkpoint(self, path, state, out, en=None) -> int:
+        """Fill `state`, the receiver rows of `out` (and the energy carry
+        `en`) from a checkpoint of `save_checkpoint`; returns its step n.
+        Refuses (ValueError) a checkpoint of another grid, dtype, route,
+        energy setting or node/source/receiver count, or one past the rows
+        of `out`."""
+        with np.load(path, allow_pickle=False) as z:
+            for k, v in self._scene_key().items():
+                if k not in z.files or not np.array_equal(z[k], v):
+                    got = z[k] if k in z.files else "missing"
+                    raise ValueError(
+                        f"checkpoint {path}: {k} {got}, this engine has "
+                        f"{v}: refusing to resume another scene or route")
+            n = int(z["n"])
+            if n > out.shape[0]:
+                raise ValueError(f"checkpoint {path} is at step {n}, past "
+                                 f"the {out.shape[0]} steps of this run")
+            dev = lambda k: torch.from_numpy(z[k]).to(self.device)
+            for i, k in ((0, "u_prev"), (1, "u_curr"), (3, "vh"), (4, "gh")):
+                state[i].copy_(dev(k))
+            out[:n] = dev("out")
+            if en is not None:
+                en.Lu.copy_(dev("Lu_prev"))
+                for k in ("H", "E_lost", "E_in"):
+                    getattr(en, k + "_rows")[:n] = dev(k)
+                if n:
+                    en.E_lost.copy_(en.E_lost_rows[n - 1])
+                    en.E_in.copy_(en.E_in_rows[n - 1])
+        return n
 
     def save_outputs(self, folder=None):
         write_outputs(folder or self._folder, self.u_out,

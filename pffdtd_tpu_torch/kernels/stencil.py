@@ -170,6 +170,41 @@ def _local_x(ix, xo, r0, r1):
     return ix - xo if r0 <= ix - xo < r1 else None
 
 
+def mirrored(u, grid, xo=0):
+    """A copy of `u` with the mirror halo flips (z, then y, then x) of
+    `_flip_halos` (jax_engine.py:270-283), for a slab whose local row i is
+    global row i + xo (the whole grid: xo = 0)."""
+    Nx, Ny, Nz = grid.shape
+    n = u.shape[0]
+    uf = u.clone()
+    uf[:, :, 0] = uf[:, :, 2]
+    uf[:, :, Nz - 1] = uf[:, :, Nz - 3]
+    uf[:, 0, :] = uf[:, 2, :]
+    uf[:, Ny - 1, :] = uf[:, Ny - 2 if grid.folded else Ny - 3, :]
+    if 0 <= -xo < n:                     # global row 0 mirrors row 2
+        uf[-xo] = uf[2 - xo]
+    if 0 <= Nx - 1 - xo < n:             # global row Nx-1 mirrors Nx-3
+        uf[Nx - 1 - xo] = uf[Nx - 3 - xo]
+    return uf
+
+
+def masked_legs(uf, adj, grid, r0, r1):
+    """(acc, K) on the local rows [r0, r1) and the interior y, z: acc =
+    sum_k bit_k * uf(x + v_k) and K = sum_k bit_k, in uf's dtype, from the
+    packed adjacency bits; uf holds the mirrored field (`mirrored`)."""
+    Ny, Nz = grid.Ny, grid.Nz
+    # torch has no >> for uint16 on the CPU: unpack from an int32 copy
+    a = adj[r0:r1, 1:Ny - 1, 1:Nz - 1].to(torch.int32)
+    VV = (FCC_VECTORS if grid.fcc_flag else CART_VECTORS).astype(np.int64)
+    acc = K = None
+    for k, (dx, dy, dz) in enumerate(VV):
+        bit = ((a >> k) & 1).to(uf.dtype)
+        t = bit * uf[r0 + dx:r1 + dx, 1 + dy:Ny - 1 + dy, 1 + dz:Nz - 1 + dz]
+        acc = t if acc is None else acc + t
+        K = bit if K is None else K + bit
+    return acc, K
+
+
 def stencil_rows_plain(u0, u1, adj, out, grid, sc, xo, r0, r1):
     """K1's step on the local rows [r0, r1) of a slab whose local row i is
     global row i + xo (grid: the global GridSpec; rows r0-1 and r1 must
@@ -178,33 +213,15 @@ def stencil_rows_plain(u0, u1, adj, out, grid, sc, xo, r0, r1):
     Each point's operations are the same, in the same order, whatever the
     slab, so slabs and the whole grid agree bit for bit."""
     Nx, Ny, Nz = grid.shape
-    n = u1.shape[0]
     dt = u1.dtype
-    u1f = u1.clone()
-    u1f[:, :, 0] = u1f[:, :, 2]
-    u1f[:, :, Nz - 1] = u1f[:, :, Nz - 3]
-    u1f[:, 0, :] = u1f[:, 2, :]
-    u1f[:, Ny - 1, :] = u1f[:, Ny - 2 if grid.folded else Ny - 3, :]
-    if 0 <= -xo < n:                     # global row 0 mirrors row 2
-        u1f[-xo] = u1f[2 - xo]
-    if 0 <= Nx - 1 - xo < n:             # global row Nx-1 mirrors Nx-3
-        u1f[Nx - 1 - xo] = u1f[Nx - 3 - xo]
+    u1f = mirrored(u1, grid, xo)
 
     rows = (slice(r0, r1), slice(1, Ny - 1), slice(1, Nz - 1))
-    # torch has no >> for uint16 on the CPU: unpack from an int32 copy
-    a = adj[rows].to(torch.int32)
-    VV = (FCC_VECTORS if grid.fcc_flag else CART_VECTORS).astype(np.int64)
-    acc = K = None
-    for k, (dx, dy, dz) in enumerate(VV):
-        bit = ((a >> k) & 1).to(dt)
-        t = bit * u1f[r0 + dx:r1 + dx, 1 + dy:Ny - 1 + dy,
-                      1 + dz:Nz - 1 + dz]
-        acc = t if acc is None else acc + t
-        K = bit if K is None else K + bit
+    acc, K = masked_legs(u1f, adj, grid, r0, r1)
     sl2 = _as_dtype(sc.sl2, dt)
     a2 = _as_dtype(sc.a2, dt)
     out[rows] = (2.0 - sl2 * K) * u1f[rows] - u0[rows] + a2 * acc
-    del a, acc, K, u1f
+    del acc, K, u1f
     for (ix, iy, iz), Q in abc_regions(grid):
         lx = _local_x(ix, xo, r0, r1)
         if lx is None:

@@ -17,7 +17,10 @@ routes to the single-device plain path in fp64.  The K3/K6 sweeps run at
 TB = 2, 3, 4, 8 (K6: 2, 3, 5), on planned chunks and on 7-row ones (a
 partial last chunk, and a source on a lossy node), with sources and
 receivers on chunk and tile edges; K4 on sizes that leave a tail after
-whole float4s and after whole blocks.
+whole float4s and after whole blocks.  Beside the kernels: the energy
+route (K1 + K2 with the energy terms) against the plain path, a resume at
+a step that is no multiple of TB, and the modal filter on the card against
+its numpy loop, <= 1e-12.
 """
 
 import dataclasses
@@ -325,3 +328,42 @@ def test_sharded_routes_match_plain_path_fp64(cuda, name, backend):
             nt=29, verbose=False)
         assert np.abs(up).max() > 0
         assert np.abs(uk - up).max() / np.abs(up).max() <= 1e-12
+
+
+# ---- energy route, resume and the modal filter on the card
+@pytest.mark.parametrize("name", list(CASES))
+def test_energy_route_on_card(cuda, name):
+    """K1 + K2 with energy on: the balance, the energies against the plain
+    path on the card, the receivers bitwise equal to the energy-off run."""
+    k = _engine(name, np.float64, energy_on=True)
+    u = k.run(verbose=False)
+    p = _engine(name, np.float64, energy_on=True, use_kernels=False)
+    p.run(verbose=False)
+    assert np.abs(k.energy_balance()).max() < 1e-10 and k.E_lost[-1] > 0
+    for a in ("H_tot", "E_lost", "E_in"):
+        ref = getattr(p, a)
+        assert np.abs(getattr(k, a) - ref).max() <= 1e-12 * np.abs(ref).max()
+    assert np.array_equal(u, _engine(name, np.float64).run(verbose=False))
+
+
+@pytest.mark.parametrize("kw", [{"backend": "tb", "tb": 3},
+                                {"backend": "pair"}])
+def test_resume_off_a_sweep_boundary_on_card(cuda, kw, tmp_path):
+    ck = tmp_path / "state.npz"
+    a = _engine("fcc-folded", np.float64, **kw).run(nt=29, verbose=False)
+    _engine("fcc-folded", np.float64, **kw).run(
+        nt=23, verbose=False, chunk=5, checkpoint_every=2,
+        checkpoint_path=ck)
+    b = _engine("fcc-folded", np.float64, **kw).run(
+        nt=29, verbose=False, chunk=5, checkpoint_path=ck, resume=True)
+    assert np.array_equal(a, b)
+
+
+def test_modal_filter_on_card(cuda):
+    from pffdtd_tpu_torch.analysis.air_abs import (apply_modal_filter,
+                                                   apply_modal_filter_plain)
+
+    x = np.random.default_rng(5).standard_normal((2, 960))
+    y = apply_modal_filter(x, 48000.0, 20.0, 50.0, device="cuda")
+    yn = apply_modal_filter_plain(x, 48000.0, 20.0, 50.0)
+    assert np.abs(y - yn).max() <= 1e-12 * np.abs(yn).max()

@@ -152,9 +152,13 @@ import numpy as np
 import torch
 torch.set_num_threads(2)
 import chip_smoke
+import pffdtd_tpu_torch.analysis.air_abs
+import pffdtd_tpu_torch.analysis.process_outputs
 import pffdtd_tpu_torch.cli
 import pffdtd_tpu_torch.convert
+import pffdtd_tpu_torch.engine.energy
 import pffdtd_tpu_torch.engine.torch_engine
+import pffdtd_tpu_torch.viz
 import pffdtd_tpu_torch.io.h5
 import pffdtd_tpu_torch.kernels.stream
 import pffdtd_tpu_torch.kernels.tb
@@ -162,6 +166,11 @@ import pffdtd_tpu_torch.parallel.partition
 import pffdtd_tpu_torch.scene
 from pffdtd_tpu_torch.engine.torch_engine import TorchEngine
 from pffdtd_tpu_torch.scene import fold_fcc_sim, synthetic_box_sim
+
+# plotting, HDF5 and filter design are imported inside functions only
+lazy = [m for m in ("matplotlib", "h5py", "scipy.signal")
+        if m in sys.modules]
+assert not lazy, lazy
 
 sim = fold_fcc_sim(synthetic_box_sim(1.2, 1.0, 0.9, h=0.1, Nt=10, fcc=True,
                                      insig_type="hann10"))
@@ -183,6 +192,15 @@ for backend in ("step", "tb"):
                              mats=sim.mats, devices=["cpu"] * 2,
                              backend=backend)
     assert sh.D == 2 and np.array_equal(sh.run(verbose=False), ref)
+eng = TorchEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
+                  mats=sim.mats, device="cpu", dtype=np.float64,
+                  energy_on=True)
+eng.run(verbose=False, chunk=4, checkpoint_every=1,
+        checkpoint_path=sys.argv[1] + "/state.npz")
+assert np.abs(eng.energy_balance()).max() < 1e-10
+from pffdtd_tpu_torch.analysis.air_abs import apply_modal_filter
+assert np.isfinite(apply_modal_filter(np.ones((1, 64)), 8000.0, 20.0, 50.0,
+                                      device="cpu")).all()
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "h5py", "pffdtd_tpu")]
 assert not bad, bad
@@ -190,9 +208,10 @@ print("ISOLATED-OK")
 """
 
 
-def test_import_isolation():
+def test_import_isolation(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    r = subprocess.run([sys.executable, "-c", _ISOLATED], cwd=REPO, env=env,
+    r = subprocess.run([sys.executable, "-c", _ISOLATED, str(tmp_path)],
+                       cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0 and "ISOLATED-OK" in r.stdout, \
         r.stdout + r.stderr
