@@ -75,6 +75,26 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    headline receivers padded to 4,800 samples, then timed alone on 2 x
    48,000 samples (1 s at 48 kHz).  The checkpoints go to a temporary
    directory inside the checkout, removed after use.
+7. Room to receivers with the port alone: two materials fitted with
+   fit_to_Sabs_oct_11 (walls 0.05..0.30, floor 0.02..0.10, no file
+   written), a 36 x 28 m hall whose ceiling rises from 17 m to 23 m along y
+   (`scene.make_sloped_room`, the sloped room of tests/test_pallas_pair.py
+   scaled up) set up by sim_setup_from_room at h = 0.046, FCC, with the
+   native voxelizer (built by g++ into pffdtd_tpu_torch/_build/) and
+   check_adj_full, then rotated "descending", folded and sorted: 792 x 310
+   x 510, the headline's grid.  Host seconds per stage (fit, g++ build,
+   voxelize and its parts, check_adj_full, comms, clash check, prep,
+   engine build), Nb, Nbl and the process's peak RSS are printed.  K1, K2
+   and K3 (TB = 3) at the hall's shapes against their plain versions (as
+   in phase 2), timed.  128 fp32 steps on the step route (K1 + K2, launch
+   counts checked, MVPS beside phase 4's box) vs the plain path, and on
+   the tb route at TB = 3 (K3) vs the step route, each <= 1e-5 of max
+   |u_out| (bitwise equality printed).  Then a 4 x 3 m hall with a 1.9 to
+   2.5 m ceiling at h = 0.1: the numpy and native voxelizers give equal
+   bn_ixyz, adj_bn, mat_bn and saf_bn, cart and FCC; cart and folded FCC
+   in fp64 with energy on (K1 + K2) and on the tb route (K3) against the
+   port's NumpyEngine on the host <= 1e-12 of each series' largest
+   magnitude, balance < 1e-10, E_lost[-1] > 0.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  The work sits under `__main__`, so importing
 this file runs nothing.
@@ -83,6 +103,7 @@ this file runs nothing.
 from __future__ import annotations
 
 import json
+import resource
 import subprocess
 import sys
 import tempfile
@@ -95,6 +116,9 @@ import torch
 
 from pffdtd_tpu_torch.analysis.air_abs import (apply_modal_filter,
                                                apply_modal_filter_plain)
+from pffdtd_tpu_torch.comms import SimComms
+from pffdtd_tpu_torch.consts import SimConsts
+from pffdtd_tpu_torch.engine.numpy_ref import NumpyEngine
 from pffdtd_tpu_torch.engine.torch_engine import TorchEngine, pick_route
 from pffdtd_tpu_torch.io.simdata import MMb
 from pffdtd_tpu_torch.kernels import _build
@@ -109,9 +133,14 @@ from pffdtd_tpu_torch.kernels.stream import (measure, stream, stream_plain,
 from pffdtd_tpu_torch.kernels.tb import (TBScene, tb_sweep, tb_sweep_plain,
                                          tb_sweep_shard, tb_sweep_shard_plain,
                                          tile_threads)
+from pffdtd_tpu_torch.materials import fit_to_Sabs_oct_11
 from pffdtd_tpu_torch.parallel.sharded_engine import make_sharded_engine
-from pffdtd_tpu_torch.scene import (fold_fcc_sim, pad_x_interior, rotate_sim,
-                                    sort_sim, synthetic_box_sim)
+from pffdtd_tpu_torch.scene import (fold_fcc_sim, make_sloped_room,
+                                    mats_from_DEF_list, pad_x_interior,
+                                    rotate_sim, sort_sim, synthetic_box_sim)
+from pffdtd_tpu_torch.scene_setup import sim_setup_from_room
+from pffdtd_tpu_torch.voxelizer import native
+from pffdtd_tpu_torch.voxelizer.vox import VoxScene
 
 SEED = 0
 NT = 128
@@ -146,6 +175,16 @@ KERNELS = {  # name: (source, replaces)
 }
 WRAPPERS = (stencil_step, boundary_update, tb_sweep, stream,
             stencil_step_shard, tb_sweep_shard)
+# phase 7: the sloped hall (Lx, Ly, ceiling at y = 0, at y = Ly, h), its
+# source and receiver offsets (1.4-1.5 m: 128 steps reach about 5.9 m),
+# and the small hall checked against the NumPy oracle
+HALL = (36.0, 28.0, 17.0, 23.0, 0.046)
+HALL_RXYZ = np.array([[1.0, -0.8, 0.6], [-0.9, 1.0, -0.6]])
+HALL_SMALL = (4.0, 3.0, 1.9, 2.5, 0.1)
+HALL_SMALL_SR = (np.array([2.2, 1.6, 1.0]),
+                 np.array([[1.5, 1.1, 0.9], [2.9, 2.2, 1.3]]))
+WALLS_SABS = np.linspace(0.05, 0.30, 11)
+FLOOR_SABS = np.linspace(0.02, 0.10, 11)
 # phase 5: (slabs, route) on cuda:0
 SHARDED = ((4, "step", {}), (4, "pair", {}), (4, "tb", {"tb": 3}),
            (2, "step", {}))
@@ -490,6 +529,12 @@ def phase5(sim, gen, single, roof, configs=SHARDED, cards=False):
             print(f"[5] K6 TB=3 {r[2]:.4f} ms/sweep on slab 1 = "
                   f"{r[2] / 3:.4f} ms/step; bound {nb / roof / 1e6:.4f} ms "
                   f"at the roof", flush=True)
+        if D == 4 and es.TB == 2 and not cards:
+            nb, _ = slab_bytes_ops(es, 1)
+            print(f"[5] K6 TB=2 {chk[('K6 TB=2', 1)][2]:.4f} ms/sweep on "
+                  f"slab 1; bound {nb / roof / 1e6:.4f} ms at the roof "
+                  f"({nb / HBM_BPS * 1e3:.4f} at the published rate), "
+                  f"{nb / 1e9:.4f} GB", flush=True)
         if D == 4 and backend == "step" and not cards:
             print(f"[5] K5 {chk[('K5', 1)][2]:.4f} ms on slab 1 = "
                   f"{nb / chk[('K5', 1)][2] / 1e6:.1f} GB/s", flush=True)
@@ -659,6 +704,211 @@ def phase6(sim, eng, u_k, t_k, small):
           f"on the card {t_48k:.3f} s", flush=True)
     require(err <= 1e-12, f"modal filter vs numpy loop: {err}")
     require(np.isfinite(y).all(), "modal filter at 48000: not finite")
+
+
+def peak_rss_gb():
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+# the stages of sim_setup_from_room that StageTimer times: label -> the
+# (owner, attribute) of each function it wraps
+SETUP_STAGES = {
+    "voxelize": [(VoxScene, "calc_adj")],
+    "of which native": [(native, "calc_adj")],
+    "of which symmetrize": [(VoxScene, "_symmetrize_adj")],
+    "of which materials + SAF": [(VoxScene, "_finalise_materials")],
+    "check_adj_full": [(VoxScene, "check_adj_full")],
+    "comms": [(SimComms, m) for m in (
+        "prepare_source_pts", "prepare_receiver_pts",
+        "prepare_source_signals", "diff_source")],
+    "of which diff_source": [(SimComms, "diff_source")],
+    "clash check": [(SimComms, "check_for_clashes")],
+}
+
+
+class StageTimer:
+    """While entered, each function of SETUP_STAGES adds its seconds to its
+    label in `s` (the originals are put back on exit)."""
+
+    def __init__(self):
+        self.s = {k: 0.0 for k in SETUP_STAGES}
+
+    def __enter__(self):
+        self.saved = []
+        for label, fns in SETUP_STAGES.items():
+            for owner, name in fns:
+                fn = getattr(owner, name)
+                self.saved.append((owner, name, fn))
+
+                def timed(*a, _label=label, _fn=fn, **kw):
+                    t0 = time.perf_counter()
+                    try:
+                        return _fn(*a, **kw)
+                    finally:
+                        self.s[_label] += time.perf_counter() - t0
+                setattr(owner, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+
+def hall_sim(dims, src, rxyz, mats, fcc, backend, nt, insig, diff):
+    """sim_setup_from_room on the sloped hall, in memory; with the seconds
+    of its stages ("rest": the room, grid, constants and SimData)."""
+    Lx, Ly, Lz1, Lz2, h = dims
+    Ts = SimConsts(h=h, fcc=fcc).Ts
+    with StageTimer() as st:
+        t0 = time.perf_counter()
+        sim = sim_setup_from_room(
+            make_sloped_room(Lx, Ly, Lz1, Lz2, src, rxyz), mats,
+            duration=nt * Ts, insig_type=insig, h=h, fcc_flag=fcc,
+            diff_source=diff, vox_backend=backend, check_adj=True)
+        total = time.perf_counter() - t0
+    rest = total - sum(st.s[k] for k in ("voxelize", "check_adj_full",
+                                         "comms", "clash check"))
+    return sim, dict(st.s, rest=rest, total=total)
+
+
+def prepped(sim):
+    return sort_sim(fold_fcc_sim(rotate_sim(sim, orient="descending")))
+
+
+def phase7(gen, ref_mvps, grid_shape, hall=HALL):
+    """Room to receivers with the port alone (see the module docstring).
+    ref_mvps: phase 4's step-route MVPS on the analytic box, grid_shape its
+    grid, which the hall's must equal."""
+    t0 = time.perf_counter()
+    DEF_walls = fit_to_Sabs_oct_11(WALLS_SABS)
+    DEF_floor = fit_to_Sabs_oct_11(FLOOR_SABS)
+    t_fit = time.perf_counter() - t0
+    mats = mats_from_DEF_list([DEF_floor, DEF_walls])
+    require(mats.Nmat == 2 and (mats.Mb == 11).all(),
+            f"fitted materials: Mb {mats.Mb}")
+    lib = native.lib_path()
+    built = not lib.exists()
+    t0 = time.perf_counter()
+    native.load()
+    t_build = time.perf_counter() - t0
+    Lx, Ly, Lz1, Lz2, h = hall
+    src = np.array([0.45 * Lx, 0.55 * Ly, 0.5 * Lz1])
+    rss0 = peak_rss_gb()
+    sim, st = hall_sim(hall, src, src + HALL_RXYZ, mats, True, "native",
+                       NT, "impulse", True)
+    t0 = time.perf_counter()
+    sim = prepped(sim)
+    t_prep = time.perf_counter() - t0
+    v = sim.vox
+    npts = v.Nx * v.Ny * v.Nz
+    nb, nbl = v.Nb, int((v.mat_bn >= 0).sum())
+    require((v.Nx, v.Ny, v.Nz) == tuple(grid_shape),
+            f"hall grid {(v.Nx, v.Ny, v.Nz)}, want the box's {grid_shape}")
+    t0 = time.perf_counter()
+    eng = engine(sim, np.float32)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng_tb = engine(sim, np.float32, backend="tb", tb=3)
+    torch.cuda.synchronize()
+    t_tb = time.perf_counter() - t0
+    print(f"[7] hall {Lx} x {Ly} m, ceiling {Lz1} to {Lz2} m, "
+          f"h = {h}: {(v.Nx, v.Ny, v.Nz)} = {npts / 1e6:.1f} Mvox "
+          f"folded FCC, Nb {nb}, Nbl {nbl}; voxelizer backend native "
+          f"({lib.name}, {'built' if built else 'found'} in {t_build:.3f} s)"
+          f"; host seconds: fit {t_fit:.3f}, sim_setup_from_room "
+          f"{st['total']:.3f} = "
+          + ", ".join(f"{k} {s:.3f}" for k, s in st.items() if k != "total")
+          + f"; prep {t_prep:.3f}, "
+          f"engine build step {t_step:.3f}, tb {t_tb:.3f}; peak RSS "
+          f"{peak_rss_gb():.2f} GB (before the setup {rss0:.2f})",
+          flush=True)
+
+    # K1, K2 and K3 at the hall's shapes: vs their plain versions, timed
+    for k, (r, a, ms, pms) in kernel_checks(eng, gen, timing_reps=20).items():
+        print(f"[7] hall {k} fp32: max rel err {r:.3e} (abs {a:.3e}), "
+              f"kernel {ms:.4f} ms, plain {pms:.4f} ms", flush=True)
+        require(r <= 1e-6, f"hall {k} disagrees with its plain version: {r}")
+    r, a, ms, _ = tb_check(eng_tb, gen, timing_reps=20, plain_reps=0)
+    print(f"[7] hall K3 TB=3 fp32: max rel err {r:.3e} (abs {a:.3e}), "
+          f"kernel {ms:.4f} ms/sweep = {ms / 3:.4f} ms/step", flush=True)
+    require(r <= 1e-5, f"hall K3 disagrees with its plain version: {r}")
+    torch.cuda.empty_cache()
+
+    u_k, t_k, _ = run_route(eng, (NT, NT, 0, 0, 0, 0))
+    eng.use_kernels = False
+    reset_counts()
+    u_p = eng.run(nt=NT, verbose=False)
+    require(counts() == (0,) * 6, "the plain path launched a kernel")
+    scale = np.abs(u_p).max()
+    require(np.isfinite(u_p).all() and scale > 0, "hall: plain path empty")
+    err = np.abs(u_k - u_p).max() / scale
+    mv = npts * NT / t_k / 1e6
+    print(f"[7] hall step route (K1 + K2): {mv:.1f} MVPS (best {t_k:.4f} s) "
+          f"beside the box's {ref_mvps:.1f} (phase 4); receivers vs plain "
+          f"path {err:.3e} of max |u_out| {scale:.3e}, bitwise equal "
+          f"{np.array_equal(u_k, u_p)}", flush=True)
+    require(err <= 1e-5, f"hall step route vs plain path: {err}")
+    del eng
+    torch.cuda.empty_cache()
+    tb3 = NT // 3, NT % 3
+    u_tb, t_t, _ = run_route(eng_tb, (tb3[1], tb3[1], tb3[0], 0, 0, 0))
+    err = np.abs(u_tb - u_k).max() / np.abs(u_k).max()
+    tl = eng_tb.tb_scene.lists
+    print(f"[7] hall tb route TB=3 (K3): {npts * NT / t_t / 1e6:.1f} MVPS "
+          f"(best {t_t:.4f} s), lossy entries {tl.node.size} (max "
+          f"{tl.max_per_tile} a tile); receivers vs step route {err:.3e}, "
+          f"bitwise equal {np.array_equal(u_tb, u_k)}", flush=True)
+    require(err <= 1e-5, f"hall tb route vs step route: {err}")
+    del eng_tb, sim
+    torch.cuda.empty_cache()
+
+    # the small hall: both voxelizer backends, then the card vs the oracle
+    src, rxyz = HALL_SMALL_SR
+    for fcc in (False, True):
+        sims = {b: hall_sim(HALL_SMALL, src, rxyz, mats, fcc, b, 60,
+                            "hann10", False)[0] for b in ("numpy", "native")}
+        same = {k: np.array_equal(getattr(sims["numpy"].vox, k),
+                                  getattr(sims["native"].vox, k))
+                for k in ("bn_ixyz", "adj_bn", "mat_bn", "saf_bn")}
+        print(f"[7] small hall {'FCC' if fcc else 'cart'}: numpy vs native "
+              f"voxelizer equal {same} (Nb {sims['native'].vox.Nb})",
+              flush=True)
+        require(all(same.values()), f"voxelizer backends differ: {same}")
+        s = prepped(sims["native"]) if fcc else sims["native"]
+        o = NumpyEngine(consts=s.consts, vox=s.vox, comms=s.comms,
+                        mats=s.mats, energy_on=True)
+        o.run_all()
+        e = engine(s, np.float64, energy_on=True)
+        reset_counts()
+        e.run(verbose=False)
+        c = counts()
+        tb = engine(s, np.float64, backend="tb", tb=3)
+        reset_counts()
+        u_tb = tb.run(verbose=False)
+        c_tb = counts()
+        # the oracle's E rows are pre-step (E[0] = 0), the engine's
+        # post-step
+        pairs = {"u_out": (e.u_out, o.u_out), "u_out tb": (u_tb, o.u_out),
+                 "H_tot": (e.H_tot, o.H_tot[:o.n]),
+                 "E_lost": (e.E_lost, o.E_lost[1:o.n + 1]),
+                 "E_in": (e.E_in, o.E_in[1:o.n + 1])}
+        errs = {a: float(np.abs(x - r).max() / np.abs(r).max())
+                for a, (x, r) in pairs.items()}
+        bal = np.abs(e.energy_balance()).max()
+        name = "folded FCC" if fcc else "cart"
+        print(f"[7] small hall {name} fp64 ({s.vox.Nx} x {s.vox.Ny} x "
+              f"{s.vox.Nz}, {o.Nt} steps, Nbl {o.Nbl}) on the card vs "
+              f"NumpyEngine: {errs}; balance {bal:.3e}, E_lost[-1] "
+              f"{e.E_lost[-1]:.6e}; launches (K1 .. K6) energy {c}, tb {c_tb}",
+              flush=True)
+        require(max(errs.values()) <= 1e-12,
+                f"small hall {name} vs the oracle: {errs}")
+        require(bal < 1e-10 and e.E_lost[-1] > 0,
+                f"small hall {name}: balance {bal}, E_lost {e.E_lost[-1]}")
+        require(c == (o.Nt, o.Nt, 0, 0, 0, 0) and c_tb == (
+            o.Nt % 3, o.Nt % 3, o.Nt // 3, 0, 0, 0),
+            f"small hall {name}: launches {c}, {c_tb}")
 
 
 def main():
@@ -847,10 +1097,18 @@ def main():
     print(f"[4] K1 {k1_ms:.4f} ms/step = {k1_bytes / k1_ms / 1e6:.1f} GB/s "
           f"at {k1_bytes / npts:.2f} B/voxel; K2 {k2_ms:.4f} ms/step",
           flush=True)
-    tl = eng_tb.tb_scene.lists
-    k3_bytes = (ni * (4 * isz + eng.adj.element_size())
+    def k3_bytes_of(e):     # fields, adj, branch states, tile lists
+        tl = e.tb_scene.lists
+        return (ni * (4 * isz + eng.adj.element_size())
                 + eng.data.Nbl * (4 * MMb * isz + isz + 4)
                 + 4 * (tl.rptr.size + 3 * tl.node.size))
+
+    k3_bytes = k3_bytes_of(eng_tb)
+    for TB, e in ((3, eng_tb), (2, eng_pair)):
+        nb = k3_bytes_of(e)
+        print(f"[4] K3 TB={TB} bound {nb / roof / 1e6:.4f} ms at the roof "
+              f"({nb / HBM_BPS * 1e3:.4f} at the published rate), "
+              f"{nb / 1e9:.4f} GB", flush=True)
     for TB, (_, _, ms, _) in tb_chk.items():
         print(f"[4] K3 TB={TB} {ms:.4f} ms/sweep, {ms / TB:.4f} ms/step "
               f"(step route K1 + K2 {k1_ms + k2_ms:.4f}), "
@@ -864,6 +1122,7 @@ def main():
     torch.cuda.empty_cache()
     p5 = phase5(sim, gen, single, roof)
     phase6(sim, eng, u_k, t_k, small)
+    phase7(gen, npts * NT / t_k / 1e6, g.shape)
 
     k2_bytes = eng.data.Nbl * (4 * MMb * isz + 8 + isz + 4 + 3 * isz)
     k4_bytes = 2 * k4["size_mb"] * (1 << 20)

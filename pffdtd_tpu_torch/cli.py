@@ -1,18 +1,26 @@
-"""Command-line entry points of the port (the `sim` and `process`
-subcommands of pffdtd_tpu/cli.py):
+"""Command-line entry points of the port (the subcommands of
+pffdtd_tpu/cli.py):
 
-    python -m pffdtd_tpu_torch.cli sim --data_dir DIR [--f64] [--energy]
-        [--nsteps N] [--checkpoint FILE --checkpoint_every K [--resume]]
+    python -m pffdtd_tpu_torch.cli sim --data_dir DIR [--engine torch|numpy]
+        [--f64] [--energy] [--nsteps N]
+        [--checkpoint FILE --checkpoint_every K [--resume]]
         [--plot [--show]] [--device cuda|cpu] [--backend auto|step|pair|tb]
         [--tb N]
     python -m pffdtd_tpu_torch.cli process --data_dir DIR ... [--device D]
+    python -m pffdtd_tpu_torch.cli prep --data_dir DIR [--rotate] [--fold]
+        [--sort]
+    python -m pffdtd_tpu_torch.cli fit-material --out mat.h5 --sabs a1,...,a11
 
 `sim` runs the sim folder through `TorchEngine` on the card (or on the CPU
-with `--device cpu`, through the kernels' plain versions) and writes
-`sim_outs.h5` with the port's writer (byte-compatible with the reference).
-`process` turns it into RIRs (`analysis.process_outputs`); its modal
-air-absorption filter runs on `--device`.  Both read and write the sim
-folder with h5py, which they import inside their functions.
+with `--device cpu`, through the kernels' plain versions), or with
+`--engine numpy` through the NumPy oracle `NumpyEngine` on the host, and
+writes `sim_outs.h5` with the port's writer (byte-compatible with the
+reference).  `process` turns it into RIRs (`analysis.process_outputs`); its
+modal air-absorption filter runs on `--device`.  `prep` rotates (dims
+descending), folds (FCC) and sorts a sim folder in place; `fit-material`
+fits 11 DEF branches to 11 octave-band absorptions and writes them to a
+material file.  Each reads and writes HDF5 with h5py, imported inside its
+function.
 """
 
 from __future__ import annotations
@@ -24,6 +32,19 @@ import numpy as np
 
 
 def _cmd_sim(args):
+    if args.engine == "numpy":
+        from pffdtd_tpu_torch.engine.numpy_ref import NumpyEngine
+        from pffdtd_tpu_torch.io.h5 import write_outputs
+
+        eng = NumpyEngine(args.data_dir, energy_on=args.energy)
+        eng.run_all()
+        write_outputs(args.data_dir, eng.u_out, eng.comms.out_reorder)
+        if args.energy:
+            print(f"--ENGINE(numpy): max |energy balance| = "
+                  f"{np.nanmax(np.abs(eng.energy_balance())):.3e}")
+        print(f"--ENGINE(numpy): wrote "
+              f"{Path(args.data_dir) / 'sim_outs.h5'}")
+        return
     from pffdtd_tpu_torch.engine.torch_engine import TorchEngine
 
     dtype = np.float64 if args.f64 else np.float32
@@ -66,6 +87,26 @@ def _cmd_process(args):
     process_main(argv)
 
 
+def _cmd_prep(args):
+    from pffdtd_tpu_torch.prep import (fold_fcc_sim_data, rotate_sim_data,
+                                       sort_sim_data)
+
+    if args.rotate:
+        rotate_sim_data(args.data_dir)
+    if args.fold:
+        fold_fcc_sim_data(args.data_dir)
+    if args.sort:
+        sort_sim_data(args.data_dir)
+
+
+def _cmd_fit_material(args):
+    from pffdtd_tpu_torch.materials import fit_to_Sabs_oct_11
+
+    sabs = np.array([float(x) for x in args.sabs.split(",")])
+    DEF = fit_to_Sabs_oct_11(sabs, filename=args.out)
+    print(f"wrote {args.out}\nDEF=\n{DEF}")
+
+
 def main(argv=None):
     from pffdtd_tpu_torch.engine.torch_engine import BACKENDS
 
@@ -73,6 +114,10 @@ def main(argv=None):
     sub = p.add_subparsers(dest="cmd", required=True)
     ps = sub.add_parser("sim", help="run the FDTD engine on a sim folder")
     ps.add_argument("--data_dir", required=True)
+    ps.add_argument("--engine", default="torch", choices=["torch", "numpy"],
+                    help="torch: TorchEngine on --device; numpy: the NumPy "
+                         "oracle on the host (fp64; of the other flags only "
+                         "--energy applies)")
     ps.add_argument("--f64", action="store_true", help="double precision")
     ps.add_argument("--energy", action="store_true",
                     help="machine-precision energy accounting (step route)")
@@ -120,6 +165,25 @@ def main(argv=None):
                     help="torch device of the modal filter: cuda (the "
                          "default) or cpu")
     pp.set_defaults(fn=_cmd_process)
+
+    pr = sub.add_parser("prep", help="rotate/fold/sort a sim folder")
+    pr.add_argument("--data_dir", required=True)
+    pr.add_argument("--rotate", action="store_true",
+                    help="permute the grid's dims into descending order "
+                         "(the reference's rule; the JAX package's default "
+                         "scores TPU tilings instead)")
+    pr.add_argument("--fold", action="store_true",
+                    help="fold an FCC grid across mid-y (fcc_flag 2)")
+    pr.add_argument("--sort", action="store_true",
+                    help="sort the boundary and source/receiver indices")
+    pr.set_defaults(fn=_cmd_prep)
+
+    pf = sub.add_parser("fit-material",
+                        help="fit DEF branches to 11 octave-band absorptions")
+    pf.add_argument("--out", required=True)
+    pf.add_argument("--sabs", required=True,
+                    help="11 comma-separated absorption coefficients")
+    pf.set_defaults(fn=_cmd_fit_material)
     args = p.parse_args(argv)
     args.fn(args)
 

@@ -1,8 +1,9 @@
 """Sources/receivers: trilinear interpolation weights and input signals.
 
 Copy of `SimComms` and the helpers it calls (`linear_interp_weights`,
-`make_source_signal`, `diff_signal`) from pffdtd_tpu/comms.py, without the
-HDF5 folder I/O; `to_comms_data` returns the port's `CommsData`.  8-point
+`make_source_signal`, `diff_signal`) from pffdtd_tpu/comms.py, with its
+folder I/O through the port's `io/h5.py` (h5py imported when called);
+`to_comms_data` returns the port's `CommsData`.  8-point
 trilinear injection/readout (the FCC variant uses doubled offsets on the
 even-parity subgrid with a parity snap); signal types impulse / hann10 /
 hann20 / dhann30 / hann5ms; grid scaling in_sigs *= l2/h (x0.5 for FCC);
@@ -104,12 +105,20 @@ def diff_signal(in_sigs: np.ndarray, Ts: float) -> np.ndarray:
 
 
 class SimComms:
-    """Prepare source/receiver data for a sim."""
+    """Prepare and save source/receiver data for a sim folder."""
 
     def __init__(self, xv, yv, zv, h, Ts, l2, fcc=False):
         self.xv, self.yv, self.zv = xv, yv, zv
         self.h, self.Ts, self.l2, self.fcc = h, Ts, l2, fcc
         self._diff = False
+
+    @classmethod
+    def from_folder(cls, folder):
+        from pffdtd_tpu_torch.io.h5 import read_cart_grid, read_consts
+
+        c = read_consts(folder)
+        xv, yv, zv, h = read_cart_grid(folder)
+        return cls(xv, yv, zv, h, c.Ts, c.l2, fcc=c.fcc)
 
     def prepare_source_pts(self, Sxyz):
         self.in_alpha, self.in_ixyz = linear_interp_weights(
@@ -147,3 +156,15 @@ class SimComms:
             in_sigs=self.in_sigs,
             diff=self._diff,
         )
+
+    def save(self, save_folder, compress=None):
+        from pffdtd_tpu_torch.io.h5 import write_comms
+
+        write_comms(save_folder, self.to_comms_data(), compress=compress)
+
+    def check_for_clashes(self, bn_ixyz):
+        """Sources/receivers must not sit on boundary nodes (scheme assumption)."""
+        for name, ixyz in (("in", self.in_ixyz), ("out", self.out_ixyz)):
+            u = np.unique(ixyz)
+            if np.intersect1d(u, bn_ixyz).size:
+                raise AssertionError(f"{name}_ixyz intersects boundary nodes")

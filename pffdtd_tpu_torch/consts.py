@@ -1,7 +1,7 @@
 """Simulation constants: sound speed, Courant numbers, grid spacing, rate.
 
-Copy of `SimConsts` and `speed_of_sound` from pffdtd_tpu/consts.py, without
-the HDF5 `save` (the port writes no sim folder).  lambda^2 = 1/3 (7-pt
+Copy of `SimConsts` and `speed_of_sound` from pffdtd_tpu/consts.py; `save`
+writes sim_consts.h5 (h5py imported inside it).  lambda^2 = 1/3 (7-pt
 Cartesian) or 1 (13-pt FCC), backed off by 0.999 in lambda to suppress the
 Nyquist mode.  Exactly one of (h,), (SR,), (fmax, PPW) sets the spacing.
 """
@@ -9,6 +9,7 @@ Nyquist mode.  Exactly one of (h,), (SR,), (fmax, PPW) sets the spacing.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 
@@ -68,3 +69,20 @@ class SimConsts:
     @property
     def fcc_flag(self) -> int:
         return int(self.fcc)
+
+    def save(self, save_folder):
+        """Write sim_consts.h5 (dataset names/dtypes per the reference format)."""
+        import h5py
+
+        folder = Path(save_folder)
+        folder.mkdir(parents=True, exist_ok=True)
+        with h5py.File(folder / "sim_consts.h5", "w") as f:
+            f.create_dataset("c", data=np.float64(self.c))
+            f.create_dataset("h", data=np.float64(self.h))
+            f.create_dataset("Ts", data=np.float64(self.Ts))
+            f.create_dataset("SR", data=np.float64(self.SR))
+            f.create_dataset("l", data=np.float64(self.l))
+            f.create_dataset("l2", data=np.float64(self.l2))
+            f.create_dataset("fcc_flag", data=np.int8(self.fcc_flag))
+            f.create_dataset("Tc", data=np.float64(self.Tc))
+            f.create_dataset("rh", data=np.float64(self.rh))

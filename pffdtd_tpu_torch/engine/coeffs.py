@@ -80,6 +80,12 @@ class MatCoeffs:
             raise ValueError("negative branch admittance sum (beta)")
         return cls(b=b, bd=bd, bDh=bDh, bFh=bFh, beta=beta, D=D, E=E, F=F)
 
+    def gather(self, mat_bnl: np.ndarray):
+        """Per-node coefficient rows; mat index -1 maps to the rigid row."""
+        idx = np.where(mat_bnl < 0, self.b.shape[0] - 1, mat_bnl)
+        return {name: getattr(self, name)[idx]
+                for name in ("b", "bd", "bDh", "bFh", "beta", "D", "E", "F")}
+
     def table(self, dtype) -> np.ndarray:
         """(Nmat+1, 4, MMb) stack of b | bd | bDh | bFh, the K2 lookup table."""
         return np.stack([self.b, self.bd, self.bDh, self.bFh], 1).astype(dtype)

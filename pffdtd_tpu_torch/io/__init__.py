@@ -1,1 +1,26 @@
-"""Sim-folder data: numpy-only dataclasses and lazy HDF5 I/O (`simdata`)."""
+"""Sim-folder data: numpy-only dataclasses (`simdata`) and the HDF5
+readers and writers (`h5`, h5py imported when one is called); the names
+that pffdtd_tpu.io exports, where the port has them."""
+
+from pffdtd_tpu_torch.io.simdata import (  # noqa: F401
+    MMb,
+    CommsData,
+    MatsData,
+    SimConstsData,
+    SimData,
+    VoxData,
+    read_sim_folder,
+)
+from pffdtd_tpu_torch.io.h5 import (  # noqa: F401
+    read_cart_grid,
+    read_mat_file,
+    read_comms,
+    read_consts,
+    read_mats,
+    read_outputs,
+    read_vox,
+    write_comms,
+    write_mats,
+    write_outputs,
+    write_vox,
+)

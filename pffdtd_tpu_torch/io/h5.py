@@ -1,9 +1,10 @@
-"""The HDF5 sim-folder reader and output writer of the port.
+"""The HDF5 sim-folder readers and writers of the port.
 
-Copy of `read_consts`, `read_vox`, `read_comms`, `read_mats`,
-`write_outputs` and `read_outputs` from pffdtd_tpu/io/h5.py (the file
-contract of the reference: dataset names, dtypes and shapes are the same, so
-the files stay byte-compatible).  They return the port's numpy-only
+Copy of the readers and writers of pffdtd_tpu/io/h5.py (`read_consts`,
+`read_vox`, `read_comms`, `read_mats`, `read_mat_file`, `read_cart_grid`,
+`write_vox`, `write_comms`, `write_mats`, `write_outputs`,
+`read_outputs`): the file contract of the reference, with the same dataset
+names, dtypes and shapes, so the files stay byte-compatible.  They return the port's numpy-only
 dataclasses.  `h5py` is imported inside each function: the card's machine
 may lack it, and nothing on the engine's path needs it.
 """
@@ -46,6 +47,23 @@ def read_comms(folder) -> CommsData:
         )
 
 
+def write_comms(folder, comms: CommsData, compress=None):
+    import h5py
+
+    kw = ({"compression": "gzip", "compression_opts": compress}
+          if compress else {})
+    with h5py.File(Path(folder) / "comms_out.h5", "w") as f:
+        f.create_dataset("in_ixyz", data=comms.in_ixyz, **kw)
+        f.create_dataset("out_ixyz", data=comms.out_ixyz, **kw)
+        f.create_dataset("out_alpha", data=comms.out_alpha, **kw)
+        f.create_dataset("out_reorder", data=comms.out_reorder, **kw)
+        f.create_dataset("in_sigs", data=comms.in_sigs, **kw)
+        f.create_dataset("Ns", data=np.int64(comms.Ns))
+        f.create_dataset("Nr", data=np.int64(comms.Nr))
+        f.create_dataset("Nt", data=np.int64(comms.Nt))
+        f.create_dataset("diff", data=np.int8(comms.diff))
+
+
 def read_vox(folder) -> VoxData:
     import h5py
 
@@ -65,6 +83,28 @@ def read_vox(folder) -> VoxData:
         )
 
 
+def write_vox(folder, vox: VoxData, compress=None):
+    import h5py
+
+    kw = ({"compression": "gzip", "compression_opts": compress}
+          if compress else {})
+    folder = Path(folder)
+    folder.mkdir(parents=True, exist_ok=True)
+    with h5py.File(folder / "vox_out.h5", "w") as f:
+        f.create_dataset("bn_ixyz", data=vox.bn_ixyz, **kw)
+        f.create_dataset("adj_bn", data=vox.adj_bn, **kw)
+        f.create_dataset("mat_bn", data=vox.mat_bn, **kw)
+        f.create_dataset("saf_bn", data=vox.saf_bn, **kw)
+        f.create_dataset("xv", data=vox.xv, **kw)
+        f.create_dataset("yv", data=vox.yv, **kw)
+        f.create_dataset("zv", data=vox.zv, **kw)
+        f.create_dataset("h", data=np.float64(vox.h))
+        f.create_dataset("Nx", data=np.int64(vox.Nx))
+        f.create_dataset("Ny", data=np.int64(vox.Ny))
+        f.create_dataset("Nz", data=np.int64(vox.Nz))
+        f.create_dataset("Nb", data=np.int64(vox.Nb))
+
+
 def read_mats(folder) -> MatsData:
     import h5py
 
@@ -79,6 +119,39 @@ def read_mats(folder) -> MatsData:
             assert Mb[i] <= MMb
             DEF[i, : Mb[i]] = d
     return MatsData(Nmat=Nmat, Mb=Mb, DEF=DEF)
+
+
+def write_mats(folder, DEF_list, compress=None):
+    """Write sim_mats.h5 from a list of (Mb_i, 3) DEF arrays."""
+    import h5py
+
+    folder = Path(folder)
+    folder.mkdir(parents=True, exist_ok=True)
+    Nmat = len(DEF_list)
+    Mb = np.zeros((Nmat,), np.int8)
+    with h5py.File(folder / "sim_mats.h5", "w") as f:
+        f.create_dataset("Nmat", data=np.int8(Nmat))
+        for i, DEF in enumerate(DEF_list):
+            DEF = np.atleast_2d(np.asarray(DEF, np.float64))
+            assert DEF.ndim == 2 and DEF.shape[1] == 3
+            f.create_dataset(f"mat_{i:02d}_DEF", data=DEF)
+            Mb[i] = DEF.shape[0]
+        f.create_dataset("Mb", data=Mb)
+
+
+def read_mat_file(path) -> np.ndarray:
+    """Read one material file: dataset 'DEF', shape (Mb, 3)."""
+    import h5py
+
+    with h5py.File(Path(path), "r") as f:
+        return np.atleast_2d(f["DEF"][()])
+
+
+def read_cart_grid(folder):
+    import h5py
+
+    with h5py.File(Path(folder) / "cart_grid.h5", "r") as f:
+        return f["xv"][...], f["yv"][...], f["zv"][...], float(f["h"][()])
 
 
 def write_outputs(folder, u_out, out_reorder=None):

@@ -1,6 +1,10 @@
-"""Synthetic box scenes and the in-memory sim-folder transforms, numpy only.
+"""Demo rooms, synthetic box scenes and the in-memory sim-folder transforms,
+numpy only.
 
 Counterparts, held array-for-array equal to the originals:
+- `make_shoebox_room`   pffdtd_tpu/demo.py `make_shoebox_room`
+- `make_sloped_room`    `_sloped_room` of tests/test_pallas_pair.py, with the
+                        floor in a second material
 - `synthetic_box_sim`   pffdtd_tpu/demo.py `synthetic_box_sim`
 - `mats_from_DEF_list`  pffdtd_tpu/scene_setup.py `mats_from_DEF_list`
 - `rotate_sim`, `fold_fcc_sim`, `sort_sim`, `pad_x_interior`
@@ -22,6 +26,7 @@ import numpy as np
 
 from pffdtd_tpu_torch.comms import SimComms
 from pffdtd_tpu_torch.consts import SimConsts
+from pffdtd_tpu_torch.geometry.room import RoomGeo
 from pffdtd_tpu_torch.io.simdata import (MMb, MatsData, SimConstsData,
                                          SimData, VoxData)
 from pffdtd_tpu_torch.utils import ind2sub3d
@@ -43,6 +48,71 @@ def mats_from_DEF_list(DEF_list) -> MatsData:
             raise ValueError(f"material {i}: DEF must be (<= {MMb}, 3)")
         DEF[i, : d.shape[0]] = d
     return MatsData(Nmat=Nmat, Mb=Mb, DEF=DEF)
+
+
+def make_shoebox_room(Lx=2.0, Ly=3.0, Lz=2.5, mats=None, sides=None) -> RoomGeo:
+    """A 12-triangle box room with outward normals.
+
+    mats: list of 6 material names per face pair (-x,+x,-y,+y,-z,+z) or None
+    for all-rigid; sides: per-face sidedness flags (default 1 = interior live).
+    """
+    v = np.array([[0, 0, 0], [Lx, 0, 0], [0, Ly, 0], [Lx, Ly, 0],
+                  [0, 0, Lz], [Lx, 0, Lz], [0, Ly, Lz], [Lx, Ly, Lz]],
+                 np.float64)
+    faces = {
+        "xm": [(0, 4, 6), (0, 6, 2)],
+        "xp": [(1, 3, 7), (1, 7, 5)],
+        "ym": [(0, 1, 5), (0, 5, 4)],
+        "yp": [(2, 6, 7), (2, 7, 3)],
+        "zm": [(0, 2, 3), (0, 3, 1)],
+        "zp": [(4, 5, 7), (4, 7, 6)],
+    }
+    tris = np.array([t for key in faces for t in faces[key]], np.int64)
+
+    if mats is None:
+        mat_names = ["_RIGID"]
+        mat_ind = np.full(12, -1, np.int8)
+        mat_side = np.zeros(12, np.int8)
+    else:
+        names = sorted(set(m for m in mats if m != "_RIGID"))
+        mat_names = names + (["_RIGID"] if "_RIGID" in mats else [])
+        lookup = {m: i for i, m in enumerate(names)}
+        lookup["_RIGID"] = -1
+        mat_ind = np.array([lookup[mats[i // 2]] for i in range(12)], np.int8)
+        if sides is None:
+            sides = [1] * 6
+        mat_side = np.array([sides[i // 2] if mat_ind[i] >= 0 else 0
+                             for i in range(12)], np.int8)
+
+    Sxyz = np.array([[0.55 * Lx, 0.6 * Ly, 0.5 * Lz]])
+    Rxyz = np.array([[0.3 * Lx, 0.3 * Ly, 0.4 * Lz],
+                     [0.7 * Lx, 0.45 * Ly, 0.6 * Lz]])
+    return RoomGeo.from_arrays(v, tris, mat_ind, mat_side, mat_names,
+                               Sxyz, Rxyz)
+
+
+def make_sloped_room(Lx=2.0, Ly=3.0, Lz1=1.6, Lz2=2.5, Sxyz=None,
+                     Rxyz=None) -> RoomGeo:
+    """A shoebox whose ceiling rises from Lz1 at y = 0 to Lz2 at y = Ly
+    (8 vertices, 12 triangles with outward normals, live on the inside):
+    the voxelizer staircases the sloped face into off-plane lossy nodes.
+    The floor is material 0 ("floor"), every other face material 1
+    ("walls")."""
+    v = np.array([[0, 0, 0], [Lx, 0, 0], [0, Ly, 0], [Lx, Ly, 0],
+                  [0, 0, Lz1], [Lx, 0, Lz1], [0, Ly, Lz2], [Lx, Ly, Lz2]],
+                 np.float64)
+    tris = np.array([(0, 4, 6), (0, 6, 2), (1, 3, 7), (1, 7, 5),
+                     (0, 1, 5), (0, 5, 4), (2, 6, 7), (2, 7, 3),
+                     (0, 2, 3), (0, 3, 1), (4, 5, 7), (4, 7, 6)], np.int64)
+    mat_ind = np.ones(12, np.int8)
+    mat_ind[8:10] = 0
+    if Sxyz is None:
+        Sxyz = np.array([[0.55 * Lx, 0.6 * Ly, 0.5 * Lz1]])
+    if Rxyz is None:
+        Rxyz = np.array([[0.3 * Lx, 0.3 * Ly, 0.4 * Lz1],
+                         [0.7 * Lx, 0.6 * Ly, 0.6 * Lz1]])
+    return RoomGeo.from_arrays(v, tris, mat_ind, np.ones(12, np.int8),
+                               ["floor", "walls"], Sxyz, Rxyz)
 
 
 def synthetic_box_sim(Lx=8.0, Ly=6.0, Lz=5.0, h=0.02, duration=None, Nt=None,

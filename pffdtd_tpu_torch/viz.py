@@ -1,8 +1,10 @@
-"""Wavefield slices, the live in-run view, animation frames and RIR plots.
+"""Wavefield slices, the voxelization draw, the live in-run view, animation
+frames and RIR plots.
 
-Copies of `fcc_fill_plot_holes`, `plot_wave_slices`, `plot_rirs` and
-`LiveSliceView` from pffdtd_tpu/viz.py, and `render_animation` driving
-`TorchEngine.run(on_chunk=...)` where the JAX one drives the engine's scan.
+Copies of `fcc_fill_plot_holes`, `plot_wave_slices`, `plot_voxelization`,
+`plot_rirs` and `LiveSliceView` from pffdtd_tpu/viz.py, and
+`render_animation` driving `TorchEngine.run(on_chunk=...)` where the JAX
+one drives the engine's scan.
 The fields may be tensors on the card: only the three slices drawn are
 copied to the host, never the whole grid.  matplotlib is imported inside
 the functions (headless-safe through the Agg backend): nothing on the
@@ -84,6 +86,66 @@ def plot_wave_slices(u, vox, in_ixyz=None, fcc=False, fname=None, title="",
         ax.set_ylabel(name[1])
     fig.colorbar(im, ax=axes, shrink=0.8)
     fig.suptitle(title)
+    if fname:
+        fig.savefig(fname, dpi=110)
+        plt.close(fig)
+    return fig
+
+
+def plot_voxelization(vs, fname=None, max_pts=200000, cut_legs=False,
+                      room=None, max_legs=20000):
+    """3-D voxelization debug draw (copy of pffdtd_tpu/viz.py).
+
+    Boundary nodes scatter coloured by material (the reference's
+    per-material mayavi/polyscope point clouds); cut_legs=True overlays
+    the CUT adjacency legs as short green segments (the reference's
+    quiver3d of ~adj_bn legs — the staircased surface normals' picture);
+    room= a RoomGeo overlays its triangle wireframe.  matplotlib only;
+    subsampling keeps hall-scale grids drawable."""
+    plt = _plt()
+    cg = vs.cg
+    ix, iy, iz = ind2sub3d(vs.bn_ixyz, cg.Nx, cg.Ny, cg.Nz)
+    rng = np.random.default_rng(0)
+    if ix.size > max_pts:
+        sel = rng.choice(ix.size, max_pts, replace=False)
+        ixs, iys, izs, mat = ix[sel], iy[sel], iz[sel], vs.mat_bn[sel]
+    else:
+        ixs, iys, izs, mat = ix, iy, iz, vs.mat_bn
+    fig = plt.figure(figsize=(9, 7))
+    ax = fig.add_subplot(projection="3d")
+    sc = ax.scatter(cg.xv[ixs], cg.yv[iys], cg.zv[izs], c=mat, s=2,
+                    cmap="tab10", alpha=0.6)
+    fig.colorbar(sc, ax=ax, label="material index (-1 = rigid)")
+    if cut_legs and vs.adj_bn is not None:
+        from mpl_toolkits.mplot3d.art3d import Line3DCollection
+
+        segs = []
+        for j in range(0, vs.vvh.shape[0], 2):    # each leg pair once
+            qq = np.flatnonzero(~vs.adj_bn[:, j])
+            if qq.size > max_legs // max(1, vs.vvh.shape[0] // 2):
+                qq = rng.choice(
+                    qq, max_legs // max(1, vs.vvh.shape[0] // 2),
+                    replace=False)
+            if not qq.size:
+                continue
+            p0 = np.c_[cg.xv[ix[qq]], cg.yv[iy[qq]], cg.zv[iz[qq]]]
+            segs.append(np.stack([p0, p0 + vs.vvh[j]], axis=1))
+        if segs:
+            ax.add_collection3d(Line3DCollection(
+                np.concatenate(segs), colors=(0, 0.8, 0, 0.5), lw=0.5))
+    if room is not None:
+        from mpl_toolkits.mplot3d.art3d import Line3DCollection
+
+        tv = room.pts[room.tris]                    # (Nt, 3, 3)
+        edges = np.concatenate([tv[:, (0, 1)], tv[:, (1, 2)],
+                                tv[:, (2, 0)]])
+        if edges.shape[0] > 3000:
+            edges = edges[rng.choice(edges.shape[0], 3000, replace=False)]
+        ax.add_collection3d(Line3DCollection(
+            edges, colors=(0.2, 0.2, 0.2, 0.25), lw=0.4))
+    ax.set_xlabel("x")
+    ax.set_ylabel("y")
+    ax.set_zlabel("z")
     if fname:
         fig.savefig(fname, dpi=110)
         plt.close(fig)

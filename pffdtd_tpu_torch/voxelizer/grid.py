@@ -1,12 +1,15 @@
 """Cartesian grid (also hosts the FCC subgrid).
 
-Copy of `CartGrid` from pffdtd_tpu/voxelizer/grid.py, without the HDF5
-`save`: the grid covers the scene bbox plus an offset*h margin (offset > 2
-guarantees the three-layer halo the ABCs need), with even dims for FCC (so
-any axis can be rotated and folded).
+Copy of `CartGrid` from pffdtd_tpu/voxelizer/grid.py: the grid covers the
+scene bbox plus an offset*h margin (offset > 2 guarantees the three-layer
+halo the ABCs need), with even dims for FCC (so any axis can be rotated
+and folded).  `save` writes cart_grid.h5 (the grid vectors, never rotated
+or folded); h5py is imported inside it.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 
@@ -45,3 +48,15 @@ class CartGrid:
         self.xyzmax = np.array([self.xv[-1], self.yv[-1], self.zv[-1]])
         assert np.all(self.xyzmin == xyzmin0)
         assert np.all(self.xyzmax >= xyzmax0)
+
+    def save(self, save_folder):
+        import h5py
+
+        folder = Path(save_folder)
+        folder.mkdir(parents=True, exist_ok=True)
+        kw = {"compression": "gzip", "compression_opts": 9}
+        with h5py.File(folder / "cart_grid.h5", "w") as f:
+            f.create_dataset("xv", data=self.xv, **kw)
+            f.create_dataset("yv", data=self.yv, **kw)
+            f.create_dataset("zv", data=self.zv, **kw)
+            f.create_dataset("h", data=np.float64(self.h))

@@ -164,11 +164,20 @@ import pffdtd_tpu_torch.kernels.stream
 import pffdtd_tpu_torch.kernels.tb
 import pffdtd_tpu_torch.parallel.partition
 import pffdtd_tpu_torch.scene
+import pffdtd_tpu_torch.engine.numpy_ref
+import pffdtd_tpu_torch.geometry
+import pffdtd_tpu_torch.geometry.exporter
+import pffdtd_tpu_torch.geometry.scene_io
+import pffdtd_tpu_torch.io
+import pffdtd_tpu_torch.materials
+import pffdtd_tpu_torch.prep
+import pffdtd_tpu_torch.scene_setup
+import pffdtd_tpu_torch.voxelizer.native
 from pffdtd_tpu_torch.engine.torch_engine import TorchEngine
 from pffdtd_tpu_torch.scene import fold_fcc_sim, synthetic_box_sim
 
-# plotting, HDF5 and filter design are imported inside functions only
-lazy = [m for m in ("matplotlib", "h5py", "scipy.signal")
+# plotting, HDF5, filter design and fitting are imported inside functions
+lazy = [m for m in ("matplotlib", "h5py", "scipy.signal", "scipy.optimize")
         if m in sys.modules]
 assert not lazy, lazy
 
@@ -201,6 +210,25 @@ assert np.abs(eng.energy_balance()).max() < 1e-10
 from pffdtd_tpu_torch.analysis.air_abs import apply_modal_filter
 assert np.isfinite(apply_modal_filter(np.ones((1, 64)), 8000.0, 20.0, 50.0,
                                       device="cpu")).all()
+# a room to receivers with the port's own setup, in memory: a fitted
+# material, the native voxelizer, prep, the NumPy oracle and the engine
+from pffdtd_tpu_torch.engine.numpy_ref import NumpyEngine
+from pffdtd_tpu_torch.materials import fit_to_Sabs_oct_11
+from pffdtd_tpu_torch.scene import (make_sloped_room, mats_from_DEF_list,
+                                    rotate_sim, sort_sim)
+from pffdtd_tpu_torch.scene_setup import sim_setup_from_room
+DEF = fit_to_Sabs_oct_11(np.full(11, 0.2))
+sim = sim_setup_from_room(make_sloped_room(), mats_from_DEF_list([DEF, DEF]),
+                          duration=0.004, insig_type="hann10", h=0.12,
+                          fcc_flag=True, vox_backend="native")
+sim = sort_sim(fold_fcc_sim(rotate_sim(sim, orient="descending")))
+kw = dict(consts=sim.consts, vox=sim.vox, comms=sim.comms, mats=sim.mats)
+o = NumpyEngine(**kw, energy_on=True)
+o.run_all()
+live = o.E_in[:o.n] > 0
+assert live.any() and np.abs(o.energy_balance()[live]).max() < 1e-10
+u = TorchEngine(**kw, device="cpu", dtype=np.float64).run(verbose=False)
+assert np.abs(u - o.u_out).max() <= 1e-12 * np.abs(o.u_out).max()
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "h5py", "pffdtd_tpu")]
 assert not bad, bad
