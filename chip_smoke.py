@@ -95,6 +95,21 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    in fp64 with energy on (K1 + K2) and on the tb route (K3) against the
    port's NumpyEngine on the host <= 1e-12 of each series' largest
    magnitude, balance < 1e-10, E_lost[-1] > 0.
+8. A billion voxels: `python -m pffdtd_tpu_torch.examples.setup_1e9
+   --check` in a subprocess (host memory of its own; a nonzero exit
+   fails the phase), the 32 x 25 x 20 m box at h = 0.025 (1288 x 1008 x
+   808 = 1.049 Gvox, Cartesian, one lossy material) set up by the port
+   with the native voxelizer and check_adj_full, then 30 ms (715 fp32
+   steps, the best of two runs) on the step route (K1 + K2), the tb route
+   (K3, TB = 3) and four x-slabs on this card (K5 + K2), each engine
+   freed before the next; each kernel against its plain version at these
+   shapes where the check fits the card's free memory.  Printed: the grid, Nb and Nbl, host seconds per
+   setup stage and the peak RSS, each route's MVPS, ms a step, device
+   peak memory and launches (checked against the steps), and the
+   receivers of tb and x4 against step (<= 1e-5 of max |u_out|, finite,
+   nonzero).  The launches of its K1, K2, K3 and K5 and their times a
+   call in the checks go into the kernels' record as `launches_1e9` and
+   `ms_1e9`.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}.  The work sits under `__main__`, so importing
 this file runs nothing.
@@ -103,7 +118,6 @@ this file runs nothing.
 from __future__ import annotations
 
 import json
-import resource
 import subprocess
 import sys
 import tempfile
@@ -116,10 +130,10 @@ import torch
 
 from pffdtd_tpu_torch.analysis.air_abs import (apply_modal_filter,
                                                apply_modal_filter_plain)
-from pffdtd_tpu_torch.comms import SimComms
 from pffdtd_tpu_torch.consts import SimConsts
 from pffdtd_tpu_torch.engine.numpy_ref import NumpyEngine
 from pffdtd_tpu_torch.engine.torch_engine import TorchEngine, pick_route
+from pffdtd_tpu_torch.examples.setup_1e9 import StageTimer, peak_rss_gb
 from pffdtd_tpu_torch.io.simdata import MMb
 from pffdtd_tpu_torch.kernels import _build
 from pffdtd_tpu_torch.kernels.boundary import boundary_update, \
@@ -140,7 +154,6 @@ from pffdtd_tpu_torch.scene import (fold_fcc_sim, make_sloped_room,
                                     rotate_sim, sort_sim, synthetic_box_sim)
 from pffdtd_tpu_torch.scene_setup import sim_setup_from_room
 from pffdtd_tpu_torch.voxelizer import native
-from pffdtd_tpu_torch.voxelizer.vox import VoxScene
 
 SEED = 0
 NT = 128
@@ -188,6 +201,9 @@ FLOOR_SABS = np.linspace(0.02, 0.10, 11)
 # phase 5: (slabs, route) on cuda:0
 SHARDED = ((4, "step", {}), (4, "pair", {}), (4, "tb", {"tb": 3}),
            (2, "step", {}))
+# phase 8: the grid setup_1e9 must build, and its subprocess's time limit
+GRID_1E9 = [1288, 1008, 808]
+TIMEOUT_1E9 = 900
 
 
 class SmokeFailure(Exception):
@@ -706,54 +722,6 @@ def phase6(sim, eng, u_k, t_k, small):
     require(np.isfinite(y).all(), "modal filter at 48000: not finite")
 
 
-def peak_rss_gb():
-    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
-
-
-# the stages of sim_setup_from_room that StageTimer times: label -> the
-# (owner, attribute) of each function it wraps
-SETUP_STAGES = {
-    "voxelize": [(VoxScene, "calc_adj")],
-    "of which native": [(native, "calc_adj")],
-    "of which symmetrize": [(VoxScene, "_symmetrize_adj")],
-    "of which materials + SAF": [(VoxScene, "_finalise_materials")],
-    "check_adj_full": [(VoxScene, "check_adj_full")],
-    "comms": [(SimComms, m) for m in (
-        "prepare_source_pts", "prepare_receiver_pts",
-        "prepare_source_signals", "diff_source")],
-    "of which diff_source": [(SimComms, "diff_source")],
-    "clash check": [(SimComms, "check_for_clashes")],
-}
-
-
-class StageTimer:
-    """While entered, each function of SETUP_STAGES adds its seconds to its
-    label in `s` (the originals are put back on exit)."""
-
-    def __init__(self):
-        self.s = {k: 0.0 for k in SETUP_STAGES}
-
-    def __enter__(self):
-        self.saved = []
-        for label, fns in SETUP_STAGES.items():
-            for owner, name in fns:
-                fn = getattr(owner, name)
-                self.saved.append((owner, name, fn))
-
-                def timed(*a, _label=label, _fn=fn, **kw):
-                    t0 = time.perf_counter()
-                    try:
-                        return _fn(*a, **kw)
-                    finally:
-                        self.s[_label] += time.perf_counter() - t0
-                setattr(owner, name, timed)
-        return self
-
-    def __exit__(self, *exc):
-        for owner, name, fn in self.saved:
-            setattr(owner, name, fn)
-
-
 def hall_sim(dims, src, rxyz, mats, fcc, backend, nt, insig, diff):
     """sim_setup_from_room on the sloped hall, in memory; with the seconds
     of its stages ("rest": the room, grid, constants and SimData)."""
@@ -909,6 +877,58 @@ def phase7(gen, ref_mvps, grid_shape, hall=HALL):
         require(c == (o.Nt, o.Nt, 0, 0, 0, 0) and c_tb == (
             o.Nt % 3, o.Nt % 3, o.Nt // 3, 0, 0, 0),
             f"small hall {name}: launches {c}, {c_tb}")
+
+
+def phase8(roof):
+    """setup_1e9 at full size in a subprocess (see the module docstring);
+    each kernel's bound at the read+write roof of phase 1 is printed;
+    returns {kernel: (its launches over the three routes, its ms a call in
+    the check)} for K1, K2, K3 and K5."""
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "pffdtd_tpu_torch.examples.setup_1e9",
+         "--check"], cwd=Path(__file__).resolve().parent,
+        capture_output=True, text=True, timeout=TIMEOUT_1E9)
+    secs = time.perf_counter() - t0
+    for line in p.stdout.splitlines():
+        if line.startswith("[setup_1e9]"):
+            print("[8]" + line[len("[setup_1e9]"):], flush=True)
+    require(p.returncode == 0, f"setup_1e9 exited with {p.returncode}:\n"
+            f"{p.stdout[-2000:]}\n{p.stderr[-4000:]}")
+    rec = json.loads(p.stdout.strip().splitlines()[-1])["setup_1e9"]
+    require(rec["grid"] == GRID_1E9, f"setup_1e9 grid {rec['grid']}, want "
+            f"{GRID_1E9}")
+    nt = rec["nt"]
+    require(nt == rec["Nt"] > 608, f"setup_1e9 ran {nt} of {rec['Nt']} "
+            f"steps: the direct sound needs about 608")
+    zero = dict.fromkeys(("K1", "K2", "K3", "K5", "K6"), 0)
+    want = {"step": dict(zero, K1=nt, K2=nt),
+            "tb": dict(zero, K1=nt % 3, K2=nt % 3, K3=nt // 3),
+            "x4": dict(zero, K2=4 * nt, K5=4 * nt)}
+    for route, r in rec["routes"].items():
+        require(r["launches"] == want[route], f"setup_1e9 {route} launches "
+                f"{r['launches']}, want {want[route]}")
+        require(r["max_abs_u"] > 0, f"setup_1e9 {route}: u_out all zero")
+    require(list(rec["routes"]) == ["step", "tb", "x4"],
+            f"setup_1e9 routes {list(rec['routes'])}")
+    errs = rec["receivers_vs_first"]
+    require(max(errs.values()) <= 1e-5, f"setup_1e9 receivers: {errs}")
+    print(f"[8] setup_1e9: {secs:.1f} s in all; receivers vs step {errs}",
+          flush=True)
+    # a check that would not fit the card's free memory is skipped and
+    # printed as such by the subprocess; one that ran agreed, or it failed
+    checks = {k: c for r in rec["routes"].values()
+              for k, c in r["checks"].items()}
+    for k, c in checks.items():
+        if "ms" in c:
+            b = c["bytes_gb"] / roof * 1e3
+            print(f"[8] {k} {c['ms']:.4f} ms a call, plain {c['plain_ms']:.4f}"
+                  f" ms; bound {b:.4f} ms at the roof ({c['bytes_gb']:.4f} "
+                  f"GB), {100 * b / c['ms']:.1f}% of it", flush=True)
+    names = {"K1": "K1 stencil_step", "K2": "K2 boundary_update",
+             "K3": "K3 tb_sweep", "K5": "K5 stencil_step_shard"}
+    return {name: (sum(r["launches"][k] for r in rec["routes"].values()),
+                   checks[k].get("ms")) for k, name in names.items()}
 
 
 def main():
@@ -1139,6 +1159,10 @@ def main():
                       0.0, k4["torch_ms"]),
         **p5,
     }
+    # phase 8 runs in its own process: free this one's fields and cache
+    del eng
+    torch.cuda.empty_cache()
+    p8 = phase8(roof)
     rec = {"kernels": []}
     for name, (n, err, ms, pms, nbytes, nops, lib_ms) in rows.items():
         b, by = bound_ms(nbytes, nops)
@@ -1147,7 +1171,9 @@ def main():
             "replaces": KERNELS[name][1], "launches": n,
             "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": b,
             "bound_by": by, "library_ms": lib_ms,
-            "bound_roof_ms": nbytes / roof / 1e6})
+            "bound_roof_ms": nbytes / roof / 1e6,
+            "launches_1e9": p8.get(name, (0, None))[0],
+            "ms_1e9": p8.get(name, (0, None))[1]})
     print(json.dumps(rec))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

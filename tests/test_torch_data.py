@@ -173,6 +173,14 @@ import pffdtd_tpu_torch.materials
 import pffdtd_tpu_torch.prep
 import pffdtd_tpu_torch.scene_setup
 import pffdtd_tpu_torch.voxelizer.native
+import pffdtd_tpu_torch.examples
+import pffdtd_tpu_torch.examples.bench_mv
+import pffdtd_tpu_torch.examples.build_material_library
+import pffdtd_tpu_torch.examples.ctk_cart_rir
+import pffdtd_tpu_torch.examples.ctk_cart_viz
+import pffdtd_tpu_torch.examples.mv_fcc_rir
+import pffdtd_tpu_torch.examples.mv_fcc_viz
+import pffdtd_tpu_torch.examples.setup_1e9
 from pffdtd_tpu_torch.engine.torch_engine import TorchEngine
 from pffdtd_tpu_torch.scene import fold_fcc_sim, synthetic_box_sim
 
@@ -229,6 +237,12 @@ live = o.E_in[:o.n] > 0
 assert live.any() and np.abs(o.energy_balance()[live]).max() < 1e-10
 u = TorchEngine(**kw, device="cpu", dtype=np.float64).run(verbose=False)
 assert np.abs(u - o.u_out).max() <= 1e-12 * np.abs(o.u_out).max()
+# setup_1e9 --quick: the box set up natively at 0.102 Gvox, two steps
+from pffdtd_tpu_torch.examples import setup_1e9
+rec, outs = setup_1e9.main(["--quick", "--device", "cpu", "--steps", "2",
+                            "--routes", "step"])
+assert rec["grid"] == [592, 464, 373] and rec["Nbl"] > 0
+assert outs["step"].shape == (8, 2) and np.isfinite(outs["step"]).all()
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "h5py", "pffdtd_tpu")]
 assert not bad, bad
