@@ -8,8 +8,9 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
 1. Device and build: the card's name and power limit (nvidia-smi), then the
    build of the CUDA kernels K1 and K5 (csrc/stencil.cu), K2
    (csrc/boundary.cu), K3 (csrc/tb.cu), K6 (csrc/tb.cu through
-   csrc/tb_shard.cu) and K4 (csrc/stream.cu) from this checkout's sources,
-   one nvcc per source, all started together.
+   csrc/tb_shard.cu), K4 (csrc/stream.cu), K7 (csrc/energy.cu) and K8
+   (csrc/modal.cu) from this checkout's sources, one nvcc per source, all
+   started together.
    K4, the streaming probe, is held against PyTorch's sum, fill_ and copy_
    and timed at 64 MB, 512 MB and 2 GB: GB/s per mode beside PyTorch's,
    each the median of 5 windows of 20 calls, the two alternating.  The
@@ -20,9 +21,14 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    summation order: the kernels are built without FMA contraction).  K3, one
    sweep of every TB = 2..8 (fields, vh/gh, taps): <= 1e-5 of the largest
    magnitude of each output, each timed (ms per sweep and per step: the
-   TB scan; TB = 2 and 3 over 20 sweeps, the deeper ones over 3).  Then fp64 on the small scenes of phase 3 (K3 at TB = 2, 3
-   and 8), <= 1e-12.  Kernels and plain versions are timed with CUDA
-   events.
+   TB scan; TB = 2 and 3 over 20 sweeps, the deeper ones over 3).  K7's
+   grid and boundary passes (the energy terms), each timed: L u^n <= 1e-6;
+   H, dE_lost and dE_in no further from their fp64 value (the fp64 plain
+   passes on the same inputs with the fp32 run's constants) than the fp32
+   plain passes' (K7 sums in fp64 and must not be less accurate than what
+   it replaces).  Then fp64 on the small scenes of phase 3 (K3 at TB = 2,
+   3 and 8; K7, every output), <= 1e-12.  Kernels and plain versions are
+   timed with CUDA events.
    K5 and K6, the shard modes (in phase 5, on the engines it builds): K5 vs
    its plain version on the first, a middle and the last slab of the D = 4
    split, <= 1e-6; K6 with TB = 2 and 3 on the same slabs (fields, owned
@@ -56,14 +62,18 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    time per step (CUDA events around the copies, one extra run) and the
    engine's peak device memory.  Each engine is freed before the next.
 6. Energy accounting, checkpoint/resume, the per-chunk hook and the modal
-   filter: (a) the small fp64 scenes with energy on (K1 + K2, launch counts
-   checked): balance < 1e-10, E_lost[-1] > 0, H_tot, E_lost and E_in
-   <= 1e-12 of their largest magnitude against the plain path on the card,
-   receivers bitwise equal to the energy-off run; (b) the headline scene
-   with energy on, 128 steps in fp32 (MVPS beside phase 4's step route,
-   receivers bitwise equal to it, 128 K1 and 128 K2 launches) and in fp64
+   filter: (a) the small fp64 scenes with energy on (K1 + K2 + K7, launch
+   counts checked: K7 twice a step, its grid and boundary passes):
+   balance < 1e-10, E_lost[-1] > 0, H_tot, E_lost and E_in <= 1e-12 of
+   their largest magnitude against the plain path on the card, receivers
+   bitwise equal to the energy-off run; (b) the headline scene with energy
+   on, 128 steps in fp32 (MVPS beside phase 4's step route, receivers
+   bitwise equal to it, 128 K1, 128 K2 and 256 K7 launches) and in fp64
    (MVPS beside the fp64 step route, balance < 1e-9, the JAX package's bar
-   for a real room), each with its peak device memory; a checkpoint of the
+   for a real room), each with its peak device memory, then 384 fp64 steps
+   (the source sits 11.5 m from the floor and the ceiling, about 250 steps
+   of one h): balance < 1e-9, and E_lost grows from step 240 to 384 by
+   more than its value at step 240; a checkpoint of the
    fp32 step route at headline size written and resumed (seconds, GB,
    receivers bitwise equal); (c) on the folded FCC scene in fp64, the step,
    tb (TB = 3), pair and energy routes run to step 23 in chunks of 5 with a
@@ -71,10 +81,13 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    resumed in a fresh engine to 29: receivers (and energies) bitwise equal
    to the uninterrupted run; (d) in those resumed runs a hook records the
    steps it sees, which must be the chunk ends; (e) the modal air-absorption
-   filter on the card against its numpy loop, <= 1e-12 relative, on the
-   headline receivers padded to 4,800 samples, then timed alone on 2 x
-   48,000 samples (1 s at 48 kHz).  The checkpoints go to a temporary
-   directory inside the checkout, removed after use.
+   filter: K8 against its numpy loop (`modal_recurrence_plain`) <= 1e-12
+   relative, bitwise equality printed, on the headline receivers padded to
+   4,800 samples; then on 2 x 48,000 samples (1 s at 48 kHz)
+   `apply_modal_filter` end to end (host clock, one K8 launch checked),
+   and K8 alone (CUDA events) beside its plain version on the card
+   (<= 1e-12).  The checkpoints go to a temporary directory inside the
+   checkout, removed after use.
 7. Room to receivers with the port alone: two materials fitted with
    fit_to_Sabs_oct_11 (walls 0.05..0.30, floor 0.02..0.10, no file
    written), a 36 x 28 m hall whose ceiling rises from 17 m to 23 m along y
@@ -117,6 +130,7 @@ this file runs nothing.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -128,9 +142,13 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from pffdtd_tpu_torch.analysis.air_abs import (apply_modal_filter,
-                                               apply_modal_filter_plain)
+from pffdtd_tpu_torch.analysis.air_abs import (_modal_setup,
+                                               apply_modal_filter,
+                                               apply_modal_filter_plain,
+                                               modal_recurrence,
+                                               modal_recurrence_plain)
 from pffdtd_tpu_torch.consts import SimConsts
+from pffdtd_tpu_torch.engine.energy import EnergyScene
 from pffdtd_tpu_torch.engine.numpy_ref import NumpyEngine
 from pffdtd_tpu_torch.engine.torch_engine import TorchEngine, pick_route
 from pffdtd_tpu_torch.examples.setup_1e9 import StageTimer, peak_rss_gb
@@ -138,6 +156,12 @@ from pffdtd_tpu_torch.io.simdata import MMb
 from pffdtd_tpu_torch.kernels import _build
 from pffdtd_tpu_torch.kernels.boundary import boundary_update, \
     boundary_update_plain
+from pffdtd_tpu_torch.kernels.energy import (energy_boundary_pass,
+                                             energy_boundary_pass_plain,
+                                             energy_grid_pass,
+                                             energy_grid_pass_plain,
+                                             scratch_size, shell_points)
+from pffdtd_tpu_torch.kernels.modal import modal_scan, modal_scan_plain
 from pffdtd_tpu_torch.kernels.stencil import (stencil_step,
                                               stencil_step_plain,
                                               stencil_step_shard,
@@ -185,9 +209,24 @@ KERNELS = {  # name: (source, replaces)
                               "pffdtd_tpu/engine/pallas_stencil.py:436"),
     "K6 tb_sweep_shard": (SRC + "tb.cu",
                           "pffdtd_tpu/engine/pallas_pair.py:212"),
+    "K7 energy_terms": (SRC + "energy.cu",
+                        "pffdtd_tpu/engine/jax_engine.py:704"),
+    "K8 modal_recurrence": (SRC + "modal.cu",
+                            "pffdtd_tpu/analysis/air_abs.py:157"),
 }
-WRAPPERS = (stencil_step, boundary_update, tb_sweep, stream,
-            stencil_step_shard, tb_sweep_shard)
+# the wrappers of K1 .. K8, whose launches add up per kernel: K7's grid
+# and boundary passes are two launches a step
+WRAPPERS = ((stencil_step,), (boundary_update,), (tb_sweep,), (stream,),
+            (stencil_step_shard,), (tb_sweep_shard,),
+            (energy_grid_pass, energy_boundary_pass), (modal_scan,))
+ZERO = (0,) * len(WRAPPERS)
+# phase 6b: the headline energy runs, and the long fp64 one that reaches
+# the floor and the ceiling (11.5 m from the source: about 250 steps of
+# one h) and the step it is read at before them
+NT_LONG, N_WALLS = 384, 240
+# phase 6e: the modal filter's lengths (samples a channel) and rate
+MODAL_CHECK, MODAL_TIMED, FS = 4800, 48000, 48000.0
+FP64_ROWS = {"K8 modal_recurrence"}     # bound at the fp64 peak
 # phase 7: the sloped hall (Lx, Ly, ceiling at y = 0, at y = Ly, h), its
 # source and receiver offsets (1.4-1.5 m: 128 steps reach about 5.9 m),
 # and the small hall checked against the NumPy oracle
@@ -407,19 +446,144 @@ def k6_check(eng, gen, k, timing_reps=0):
     return (max(e[0] for e in errs), max(e[1] for e in errs)) + t
 
 
+def energy_inputs(es, gen, dt):
+    """A random state for K7's passes on the scene `es`: u^{n-1}, u^n,
+    u^{n+1}, L u^{n-1} (zero halos, as the engine keeps it), vh after the
+    step, vh and gh before it, and the source samples."""
+    g = es.grid.shape
+    nbl = es.ssaf.numel()
+    Lu = torch.zeros(g, dtype=dt, device="cuda")
+    Lu[1:-1, 1:-1, 1:-1] = randn(gen, dt, *(n - 2 for n in g))
+    return (randn(gen, dt, *g), randn(gen, dt, *g), randn(gen, dt, *g), Lu,
+            randn(gen, dt, MMb, nbl), randn(gen, dt, MMb, nbl),
+            randn(gen, dt, MMb, nbl), randn(gen, dt, es.in_ixyz.numel()))
+
+
+def energy_outputs(es, Lu):
+    """Fresh outputs of K7's passes: L u (a copy of `Lu`), the fp64
+    scratch, H, E_lost and E_in (0-d, zero)."""
+    z = lambda: torch.zeros((), dtype=Lu.dtype, device=Lu.device)
+    part = torch.zeros(scratch_size(es.grid, es.ssaf.numel()),
+                       dtype=torch.float64, device=Lu.device)
+    return Lu.clone(), part, z(), z(), z()
+
+
+def energy_passes(passes, es, ins, outs):
+    """The grid pass, then the boundary pass, from `ins` into `outs`."""
+    u0, u1, unew, _, vh, vh_prev, gh_prev, sig = ins
+    Lu, part, H, E_lost, E_in = outs
+    passes[0](es, u0, u1, Lu, part)
+    passes[1](es, unew, u0, vh, vh_prev, gh_prev, sig, part, H, E_lost,
+              E_in)
+    return outs
+
+
+K7_PASSES = (energy_grid_pass, energy_boundary_pass)
+K7_PLAIN = (energy_grid_pass_plain, energy_boundary_pass_plain)
+
+
+def k7_check(eng, gen, timing_reps=0):
+    """K7's two passes vs their plain versions from a random state on the
+    scene of `eng`.  Returns (max rel err of L u^n, max abs err over L u^n,
+    H, dE_lost and dE_in, {name: (K7, plain, fp64 reference)} of the
+    energies (the reference, fp32 states only: the fp64 plain passes on the
+    same inputs with the fp32 run's constants), (grid, boundary) kernel ms,
+    (grid, boundary) plain ms, bytes of one step's two passes)."""
+    d = eng.data
+    es = EnergyScene.make(d, adj=eng.adj, ssaf=eng.ssaf, mat=eng.mat,
+                          in_ixyz=eng.in_ixyz)
+    ins = energy_inputs(es, gen, eng.dtype)
+    ok = energy_passes(K7_PASSES, es, ins, energy_outputs(es, ins[3]))
+    op = energy_passes(K7_PLAIN, es, ins, energy_outputs(es, ins[3]))
+    torch.cuda.synchronize()
+    r_Lu, a_Lu = rel(ok[0], op[0])
+    ref = (None,) * 3
+    if eng.dtype == torch.float32:
+        es64 = dataclasses.replace(es, ssaf=es.ssaf.double(),
+                                   def_table=es.def_table.double())
+        ins64 = tuple(x.double() for x in ins)
+        o64 = energy_passes(K7_PLAIN, es64, ins64,
+                            energy_outputs(es64, ins64[3]))
+        ref = tuple(float(x) for x in o64[2:])
+        del ins64, o64
+        torch.cuda.empty_cache()
+    en = {k: (float(a), float(b), c) for k, a, b, c in zip(
+        ("H", "dE_lost", "dE_in"), ok[2:], op[2:], ref)}
+    err = max([a_Lu] + [abs(a - b) for a, b, _ in en.values()])
+    ms = pms = (None, None)
+    if timing_reps:
+        u0, u1, unew, _, vh, vh_prev, gh_prev, sig = ins
+        b_args = (unew, u0, vh, vh_prev, gh_prev, sig)
+        ms = (time_ms(lambda: energy_grid_pass(es, u0, u1, ok[0], ok[1]),
+                      timing_reps),
+              time_ms(lambda: energy_boundary_pass(es, *b_args, *ok[1:]),
+                      timing_reps))
+        pms = (time_ms(lambda: energy_grid_pass_plain(es, u0, u1, op[0],
+                                                      op[1]), 2),
+               time_ms(lambda: energy_boundary_pass_plain(es, *b_args,
+                                                          *op[1:]), 2))
+    isz, nbl = ins[0].element_size(), d.Nbl
+    nbytes = (d.grid.n_interior * (4 * isz + eng.adj.element_size())
+              + shell_points(d.grid) * 2 * isz
+              + nbl * (3 * MMb * isz + isz + 4)
+              + d.in_ixyz.size * (3 * isz + 8) + 8 * ok[1].numel())
+    del ins, ok, op
+    torch.cuda.empty_cache()
+    return r_Lu, err, en, ms, pms, nbytes
+
+
+def k7_print_require(where, r, fp32):
+    """Prints a k7_check result and holds it to its bars (see the module
+    docstring)."""
+    r_Lu, err, en, ms, pms, nbytes = r
+    t = (f"; grid pass {ms[0]:.4f} ms, boundary pass {ms[1]:.4f} ms (plain "
+         f"{pms[0]:.4f}, {pms[1]:.4f}); bound of the two "
+         f"{nbytes / HBM_BPS * 1e3:.4f} ms at the published rate, "
+         f"{nbytes / 1e9:.4f} GB" if ms[0] is not None else "")
+    print(f"[2] K7 {where}: L u^n max rel err {r_Lu:.3e}; energies (K7, "
+          f"plain, fp64 reference) {en}; max abs err {err:.3e}{t}",
+          flush=True)
+    require(r_Lu <= (1e-6 if fp32 else 1e-12),
+            f"K7 {where}: L u^n disagrees: {r_Lu}")
+    for k, (a, b, ref) in en.items():
+        if fp32:
+            require(abs(a - ref) <= abs(b - ref),
+                    f"K7 {where}: {k} {a} is further from the fp64 value "
+                    f"{ref} than the fp32 plain path's {b}")
+        else:
+            require(abs(a - b) <= 1e-12 * abs(b),
+                    f"K7 {where}: {k} {a} vs plain {b}")
+
+
+def once_ms(fn):
+    """ms of one call of fn on the card, from CUDA events."""
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1)
+
+
 def reset_counts():
-    for w in WRAPPERS:
-        w.launches = 0
+    for ws in WRAPPERS:
+        for w in ws:
+            w.launches = 0
 
 
 def counts():
-    return tuple(w.launches for w in WRAPPERS)
+    return tuple(sum(w.launches for w in ws) for ws in WRAPPERS)
+
+
+def launches(K1=0, K2=0, K3=0, K4=0, K5=0, K6=0, K7=0, K8=0):
+    return (K1, K2, K3, K4, K5, K6, K7, K8)
 
 
 def run_route(eng, want, reps=3):
-    """Best of `reps` runs of NT steps; each run's launch counts (K1, K2,
-    K3, K4, K5, K6) are reset just before it and must equal `want` just
-    after."""
+    """Best of `reps` runs of NT steps; each run's launch counts (K1 ..
+    K8) are reset just before it and must equal `want` just after."""
     runs = []
     for _ in range(reps):
         reset_counts()
@@ -526,7 +690,7 @@ def phase5(sim, gen, single, roof, configs=SHARDED, cards=False):
               f"{mv / mv1:.4f} of the single device's {mv1:.1f}; exchange "
               f"{x_ms:.4f} ms/step; peak device memory {peak:.2f} GB "
               f"(a card, the engine's own); "
-              f"launches (K1 .. K6) {c}; receivers vs single device "
+              f"launches (K1 .. K8) {c}; receivers vs single device "
               f"{err:.3e} of max |u_out| {scale:.3e}, bitwise equal "
               f"{np.array_equal(u, u_ref)}", flush=True)
         require(err <= 1e-5, f"{name} receivers disagree: {err}")
@@ -560,15 +724,16 @@ def phase5(sim, gen, single, roof, configs=SHARDED, cards=False):
 
 
 def counts_of(eng, D, g):
-    """The launches (K1 .. K6) one NT-step run of `eng` must make."""
+    """The launches (K1 .. K8) one NT-step run of `eng` must make."""
     TB = eng.TB
     if D == 1 and TB is None:
-        return (NT, NT, 0, 0, 0, 0)
+        return launches(K1=NT, K2=NT)
     if D == 1:
-        return (NT % TB, NT % TB, NT // TB, 0, 0, 0)
+        return launches(K1=NT % TB, K2=NT % TB, K3=NT // TB)
     if TB is None:
-        return (0, D * NT, 0, 0, D * NT, 0)
-    return (0, D * (NT % TB), 0, 0, D * (NT % TB), D * (NT // TB))
+        return launches(K2=D * NT, K5=D * NT)
+    return launches(K2=D * (NT % TB), K5=D * (NT % TB),
+                    K6=D * (NT // TB))
 
 
 def energy_rows_equal(a, b):
@@ -579,7 +744,9 @@ def energy_rows_equal(a, b):
 def phase6(sim, eng, u_k, t_k, small):
     """Energy accounting, checkpoint/resume, the per-chunk hook and the
     modal filter on the card.  eng: phase 4's fp32 step engine on the
-    headline scene, u_k and t_k its receivers and best time."""
+    headline scene, u_k and t_k its receivers and best time.  Returns the
+    K7 launches of the fp32 headline energy run and K8's row of the
+    kernels' record."""
     g = eng.data.grid
     npts = g.Nx * g.Ny * g.Nz
 
@@ -589,8 +756,9 @@ def phase6(sim, eng, u_k, t_k, small):
         reset_counts()
         uk = ek.run(verbose=False)
         c = counts()
-        require(c == (ek.Nt, ek.Nt, 0, 0, 0, 0),
-                f"{n} energy route launches {c}, want {ek.Nt} K1 + K2")
+        require(c == launches(K1=ek.Nt, K2=ek.Nt, K7=2 * ek.Nt),
+                f"{n} energy route launches {c}, want {ek.Nt} K1 + K2 and "
+                f"{2 * ek.Nt} K7")
         ep = engine(s, np.float64, energy_on=True, use_kernels=False)
         ep.run(verbose=False)
         bal = np.abs(ek.energy_balance()).max()
@@ -606,19 +774,23 @@ def phase6(sim, eng, u_k, t_k, small):
         require(max(errs.values()) <= 1e-12, f"{n}: energies vs plain {errs}")
         require(same, f"{n}: the energy route changed the receivers")
 
-    # (b) energy on the headline scene, fp32 then fp64
+    # (b) energy on the headline scene, fp32 then fp64, NT steps each
+    # against the step route; then fp64 over NT_LONG steps, past the walls
+    sim_long = headline_scene(NT_LONG)
+    k7_launches = None
     for dt in (np.float32, np.float64):
         name = np.dtype(dt).name
         if dt == np.float32:
-            u_off, t_off = u_k, t_k
+            s, u_off, t_off = sim, u_k, t_k
         else:      # the fp64 step route, energy off
-            e = engine(sim, dt)
+            s = sim_long
+            e = engine(s, dt)
             u_off = e.run(nt=NT, verbose=False)
             t_off = e.elapsed
             del e
             torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
-        e = engine(sim, dt, energy_on=True)
+        e = engine(s, dt, energy_on=True)
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         u = e.run(nt=NT, verbose=False)
@@ -627,20 +799,45 @@ def phase6(sim, eng, u_k, t_k, small):
         bal = np.abs(e.energy_balance()).max()
         same = np.array_equal(u, u_off)
         print(f"[6b] headline {name} energy route: "
-              f"{npts * NT / e.elapsed / 1e6:.1f} MVPS ({e.elapsed:.4f} s) "
-              f"against the step route's {npts * NT / t_off / 1e6:.1f} "
-              f"({t_off:.4f} s); launches (K1 .. K6) {c}; balance "
-              f"{bal:.3e}; E_lost[-1] {e.E_lost[-1]:.6e}; receivers "
-              f"bitwise equal to the step route {same}; peak device memory "
-              f"{peak:.2f} GB (the engine's own)", flush=True)
-        require(c == (NT, NT, 0, 0, 0, 0), f"{name} energy launches {c}")
+              f"{npts * NT / e.elapsed / 1e6:.1f} MVPS ({e.elapsed:.4f} s, "
+              f"{e.elapsed / NT * 1e3:.4f} ms a step) against the step "
+              f"route's {npts * NT / t_off / 1e6:.1f} ({t_off:.4f} s); "
+              f"launches (K1 .. K8) {c}; balance {bal:.3e}; E_lost[-1] "
+              f"{e.E_lost[-1]:.6e}; receivers bitwise equal to the step "
+              f"route {same}; peak device memory {peak:.2f} GB (the "
+              f"engine's own)", flush=True)
+        require(c == launches(K1=NT, K2=NT, K7=2 * NT),
+                f"{name} energy launches {c}")
         require(np.isfinite(e.H_tot).all() and e.E_in[-1] > 0,
                 f"{name}: energies not finite or no input energy")
         require(same, f"headline {name}: energy route receivers differ")
-        if dt == np.float64:
+        if dt == np.float32:
+            k7_launches = c[6]
+        else:
             require(bal < 1e-9, f"headline fp64 energy balance {bal}")
+            reset_counts()
+            e.run(nt=NT_LONG, verbose=False)
+            c = counts()
+            bal = np.abs(e.energy_balance()).max()
+            El = e.E_lost
+            grow = El[-1] - El[N_WALLS - 1]
+            print(f"[6b] headline float64 energy route, {NT_LONG} steps: "
+                  f"{npts * NT_LONG / e.elapsed / 1e6:.1f} MVPS "
+                  f"({e.elapsed:.4f} s); launches (K1 .. K8) {c}; balance "
+                  f"{bal:.3e}; E_lost at step {N_WALLS} {El[N_WALLS - 1]:.6e}"
+                  f", at {NT_LONG} {El[-1]:.6e} (grew {grow:.6e}); E_in[-1] "
+                  f"{e.E_in[-1]:.6e}", flush=True)
+            require(c == launches(K1=NT_LONG, K2=NT_LONG, K7=2 * NT_LONG),
+                    f"fp64 {NT_LONG}-step energy launches {c}")
+            require(bal < 1e-9, f"headline fp64 {NT_LONG}-step energy "
+                    f"balance {bal}")
+            require(grow > El[N_WALLS - 1],
+                    f"E_lost grew by {grow} from step {N_WALLS} to "
+                    f"{NT_LONG}, not more than its {El[N_WALLS - 1]}: the "
+                    f"walls took no energy")
         del e
         torch.cuda.empty_cache()
+    del sim_long
 
     # checkpoint write and read at headline size (fp32 step route)
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) \
@@ -697,29 +894,64 @@ def phase6(sim, eng, u_k, t_k, small):
                     f"{kw}: the hook saw another state")
 
     # (e) the modal air-absorption filter: the headline receivers (their 8
-    # trilinear taps weighted, as `process` does) padded to 4,800 samples,
-    # on the card vs the numpy loop; then 2 x 48,000 samples alone
+    # trilinear taps weighted, as `process` does) padded to MODAL_CHECK
+    # samples: K8 vs the numpy loop; then MODAL_TIMED samples a channel
     cm = sim.comms
     taps = u_k[cm.out_reorder].reshape(*cm.out_alpha.shape, -1)
     r = np.sum(taps * cm.out_alpha[..., None], axis=1)
-    x = np.zeros((r.shape[0], 4800))
+    x = np.zeros((r.shape[0], MODAL_CHECK))
     x[:, :NT] = r
+    setup = _modal_setup(x, FS, 20.0, 50.0, 0.0)
     t0 = time.perf_counter()
-    y = apply_modal_filter(x, 48000.0, 20.0, 50.0, device="cuda")
+    P = modal_recurrence(*setup, device="cuda")
     t_card = time.perf_counter() - t0
     t0 = time.perf_counter()
-    yn = apply_modal_filter_plain(x, 48000.0, 20.0, 50.0)
+    Pn = modal_recurrence_plain(*setup)
     t_np = time.perf_counter() - t0
-    err = float(np.abs(y - yn).max() / np.abs(yn).max())
-    x = np.random.default_rng(SEED).standard_normal((2, 48000))
+    err_abs = float(np.abs(P - Pn).max())
+    err = err_abs / float(np.abs(Pn).max())
+    y = apply_modal_filter(x, FS, 20.0, 50.0, device="cuda")
+    yn = apply_modal_filter_plain(x, FS, 20.0, 50.0)
+    err_y = float(np.abs(y - yn).max() / np.abs(yn).max())
+    print(f"[6e] modal recurrence {r.shape[0]} x {MODAL_CHECK}: K8 "
+          f"{t_card:.3f} s (host clock, copies included) vs the numpy loop "
+          f"{t_np:.3f} s, max rel err {err:.3e} (abs {err_abs:.3e}), bitwise "
+          f"equal {np.array_equal(P, Pn)}; filtered RIRs vs "
+          f"apply_modal_filter_plain {err_y:.3e}", flush=True)
+    require(err <= 1e-12 and err_y <= 1e-12,
+            f"K8 vs the numpy loop: {err}, filtered {err_y}")
+    x = np.random.default_rng(SEED).standard_normal((2, MODAL_TIMED))
+    reset_counts()
     t0 = time.perf_counter()
-    y = apply_modal_filter(x, 48000.0, 20.0, 50.0, device="cuda")
+    y = apply_modal_filter(x, FS, 20.0, 50.0, device="cuda")
     t_48k = time.perf_counter() - t0
-    print(f"[6e] modal filter {r.shape[0]} x 4800: card {t_card:.3f} s vs "
-          f"the numpy loop {t_np:.3f} s, max rel err {err:.3e}; 2 x 48000 "
-          f"on the card {t_48k:.3f} s", flush=True)
-    require(err <= 1e-12, f"modal filter vs numpy loop: {err}")
+    c = counts()
+    require(c == launches(K8=1), f"apply_modal_filter launches {c}, want "
+            f"one K8")
     require(np.isfinite(y).all(), "modal filter at 48000: not finite")
+    ts = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in
+          _modal_setup(x, FS, 20.0, 50.0, 0.0)]
+    out, out_p = torch.empty_like(ts[2]), torch.empty_like(ts[2])
+    k8_ms = time_ms(lambda: modal_scan(*ts, out), 3)
+    plain_ms = once_ms(lambda: modal_scan_plain(*ts, out_p))
+    torch.cuda.synchronize()
+    same = torch.equal(out, out_p)
+    err_p = rel(out, out_p)[0]
+    nch, nt = ts[2].shape
+    nops = 7.0 * nch * nt * nt
+    nbytes = 8 * (2 * nt + 3 * nch * nt + nch * (nt + 1))
+    print(f"[6e] modal filter 2 x {MODAL_TIMED} (1 s at 48 kHz): "
+          f"apply_modal_filter {t_48k:.3f} s end to end (host clock), "
+          f"launches (K1 .. K8) {c}; K8 alone {k8_ms:.4f} ms (CUDA events) "
+          f"= {nops / k8_ms / 1e9:.3f} fp64 Top/s, bound "
+          f"{nops / FP64_OPS * 1e3:.4f} ms ({nops:.4e} operations at "
+          f"{FP64_OPS:.0e}/s); the plain version on the card "
+          f"{plain_ms:.1f} ms, max rel err {err_p:.3e}, bitwise equal "
+          f"{same}", flush=True)
+    require(err_p <= 1e-12, f"K8 vs its plain version at {MODAL_TIMED}: "
+            f"{err_p}")
+    del ts, out, out_p
+    return k7_launches, (c[7], err_abs, k8_ms, plain_ms, nbytes, nops, None)
 
 
 def hall_sim(dims, src, rxyz, mats, fcc, backend, nt, insig, diff):
@@ -803,11 +1035,11 @@ def phase7(gen, ref_mvps, grid_shape, hall=HALL):
     require(r <= 1e-5, f"hall K3 disagrees with its plain version: {r}")
     torch.cuda.empty_cache()
 
-    u_k, t_k, _ = run_route(eng, (NT, NT, 0, 0, 0, 0))
+    u_k, t_k, _ = run_route(eng, launches(K1=NT, K2=NT))
     eng.use_kernels = False
     reset_counts()
     u_p = eng.run(nt=NT, verbose=False)
-    require(counts() == (0,) * 6, "the plain path launched a kernel")
+    require(counts() == ZERO, "the plain path launched a kernel")
     scale = np.abs(u_p).max()
     require(np.isfinite(u_p).all() and scale > 0, "hall: plain path empty")
     err = np.abs(u_k - u_p).max() / scale
@@ -820,7 +1052,8 @@ def phase7(gen, ref_mvps, grid_shape, hall=HALL):
     del eng
     torch.cuda.empty_cache()
     tb3 = NT // 3, NT % 3
-    u_tb, t_t, _ = run_route(eng_tb, (tb3[1], tb3[1], tb3[0], 0, 0, 0))
+    u_tb, t_t, _ = run_route(eng_tb, launches(K1=tb3[1], K2=tb3[1],
+                                              K3=tb3[0]))
     err = np.abs(u_tb - u_k).max() / np.abs(u_k).max()
     tl = eng_tb.tb_scene.lists
     print(f"[7] hall tb route TB=3 (K3): {npts * NT / t_t / 1e6:.1f} MVPS "
@@ -868,14 +1101,15 @@ def phase7(gen, ref_mvps, grid_shape, hall=HALL):
         print(f"[7] small hall {name} fp64 ({s.vox.Nx} x {s.vox.Ny} x "
               f"{s.vox.Nz}, {o.Nt} steps, Nbl {o.Nbl}) on the card vs "
               f"NumpyEngine: {errs}; balance {bal:.3e}, E_lost[-1] "
-              f"{e.E_lost[-1]:.6e}; launches (K1 .. K6) energy {c}, tb {c_tb}",
+              f"{e.E_lost[-1]:.6e}; launches (K1 .. K8) energy {c}, tb {c_tb}",
               flush=True)
         require(max(errs.values()) <= 1e-12,
                 f"small hall {name} vs the oracle: {errs}")
         require(bal < 1e-10 and e.E_lost[-1] > 0,
                 f"small hall {name}: balance {bal}, E_lost {e.E_lost[-1]}")
-        require(c == (o.Nt, o.Nt, 0, 0, 0, 0) and c_tb == (
-            o.Nt % 3, o.Nt % 3, o.Nt // 3, 0, 0, 0),
+        require(c == launches(K1=o.Nt, K2=o.Nt, K7=2 * o.Nt)
+                and c_tb == launches(K1=o.Nt % 3, K2=o.Nt % 3,
+                                     K3=o.Nt // 3),
             f"small hall {name}: launches {c}, {c_tb}")
 
 
@@ -1013,6 +1247,8 @@ def main():
         print(f"[2] {k} fp32 main shapes: max rel err {r:.3e} (abs {a:.3e}),"
               f" kernel {ms:.4f} ms, plain {pms:.4f} ms", flush=True)
         require(r <= 1e-6, f"{k} fp32 disagrees with its plain version: {r}")
+    k7_chk = k7_check(eng, gen, timing_reps=20)
+    k7_print_require("fp32 main shapes", k7_chk, fp32=True)
     # K3 at every TB on the headline scene: checked against its plain
     # version and timed, TB = 2 and 3 (the routes', on the pair and tb
     # engines' scenes) over 20 sweeps, the deeper ones over 3
@@ -1042,6 +1278,8 @@ def main():
                                              gen).items():
             print(f"[2] {k} fp64 {n}: max rel err {r:.3e}", flush=True)
             require(r <= 1e-12, f"{k} fp64 {n} disagrees: {r}")
+        k7_print_require(f"fp64 {n}", k7_check(engine(s, np.float64), gen),
+                         fp32=False)
         for TB in (2, 3, 8):
             r = tb_check(engine(s, np.float64, backend="tb", tb=TB), gen)[0]
             print(f"[2] K3 TB={TB} fp64 {n}: max rel err {r:.3e}",
@@ -1089,23 +1327,23 @@ def main():
 
     # ---- 4. the main path: 128 fp32 steps per route, best of 3
     tb3 = NT // 3, NT % 3
-    u_tb, t_tb, c_tb = run_route(eng_tb,
-                                 (tb3[1], tb3[1], tb3[0], 0, 0, 0))
-    u_pr, t_pr, c_pr = run_route(eng_pair, (0, 0, NT // 2, 0, 0, 0))
-    u_k, t_k, c_k = run_route(eng, (NT, NT, 0, 0, 0, 0))
+    u_tb, t_tb, c_tb = run_route(eng_tb, launches(K1=tb3[1], K2=tb3[1],
+                                                  K3=tb3[0]))
+    u_pr, t_pr, c_pr = run_route(eng_pair, launches(K3=NT // 2))
+    u_k, t_k, c_k = run_route(eng, launches(K1=NT, K2=NT))
     eng.use_kernels = False
     reset_counts()
     t_p = []
     for _ in range(3):
         u_p = eng.run(nt=NT, verbose=False)
         t_p.append(eng.elapsed)
-    require(counts() == (0,) * 6, "the plain path launched a kernel")
+    require(counts() == ZERO, "the plain path launched a kernel")
     scale = np.abs(u_p).max()
     isz = eng.state[0].element_size()
     ni = g.n_interior
     k1_ms, k2_ms = main_chk["K1"][2], main_chk["K2"][2]
     k1_bytes = ni * (3 * isz + eng.adj.element_size())
-    print(f"[4] launches (K1 .. K6) per {NT} steps: tb TB=3 {c_tb}, "
+    print(f"[4] launches (K1 .. K8) per {NT} steps: tb TB=3 {c_tb}, "
           f"pair {c_pr}, step {c_k}", flush=True)
     for name, u, t in (("tb TB=3", u_tb, t_tb), ("pair", u_pr, t_pr),
                        ("step", u_k, t_k), ("plain", u_p, min(t_p))):
@@ -1141,7 +1379,7 @@ def main():
     del eng_tb, eng_pair
     torch.cuda.empty_cache()
     p5 = phase5(sim, gen, single, roof)
-    phase6(sim, eng, u_k, t_k, small)
+    k7_launches, k8_row = phase6(sim, eng, u_k, t_k, small)
     phase7(gen, npts * NT / t_k / 1e6, g.shape)
 
     k2_bytes = eng.data.Nbl * (4 * MMb * isz + 8 + isz + 4 + 3 * isz)
@@ -1158,6 +1396,12 @@ def main():
         "K4 stream": (k4_launches, s_err, k4["ms"], k4["torch_ms"], k4_bytes,
                       0.0, k4["torch_ms"]),
         **p5,
+        # K7: one step's grid and boundary passes
+        "K7 energy_terms": (k7_launches, k7_chk[1], sum(k7_chk[3]),
+                            sum(k7_chk[4]), k7_chk[5],
+                            35.0 * ni + 3.0 * shell_points(g)
+                            + 10.0 * MMb * eng.data.Nbl, None),
+        "K8 modal_recurrence": k8_row,
     }
     # phase 8 runs in its own process: free this one's fields and cache
     del eng
@@ -1165,7 +1409,7 @@ def main():
     p8 = phase8(roof)
     rec = {"kernels": []}
     for name, (n, err, ms, pms, nbytes, nops, lib_ms) in rows.items():
-        b, by = bound_ms(nbytes, nops)
+        b, by = bound_ms(nbytes, nops, fp64=name in FP64_ROWS)
         rec["kernels"].append({
             "name": name, "route": "cuda", "source": KERNELS[name][0],
             "replaces": KERNELS[name][1], "launches": n,

@@ -1,9 +1,9 @@
 """Air absorption: the ISO 9613-1 model and three RIR filtering methods.
 
 Copy of pffdtd_tpu/analysis/air_abs.py (numpy/scipy), except that the modal
-filter's per-sample recurrence runs as PyTorch ops on a device (the card by
-default) where the JAX package runs it as a `lax.scan`.  Physics parity
-targets:
+filter's per-sample recurrence runs on a device (the card by default, as
+the hand-written kernel K8) where the JAX package runs it as a `lax.scan`.
+Physics parity targets:
 - `air_absorption`: ISO 9613-1 atmospheric attenuation — relaxation
   frequencies frO/frN, classical + vibrational Np/m and dB/m curves, and the
   modified viscothermal coefficients used by the filters
@@ -14,9 +14,10 @@ targets:
   (the reference loops sample-by-sample with numba).
 - `apply_modal_filter`: DCT-domain bank of damped 1-D wave equations tuned
   to the attenuation curve [Hamilton, I3DA 2021] (modal_filter.py:34-86) —
-  here the per-sample recurrence runs over all modes at once, as PyTorch
-  ops on the device in float64 (`modal_recurrence`), beside its plain
-  numpy loop (`modal_recurrence_plain`; the reference uses a numba loop).
+  here the per-sample recurrence runs over all modes at once in float64,
+  on the card as one launch of K8 (`modal_recurrence`, csrc/modal.cu),
+  beside its plain numpy loop (`modal_recurrence_plain`; the reference
+  uses a numba loop).
 - `apply_ola_filter`: STFT overlap-add with distance-dependent e^{-alpha d}
   gains, 1024-tap Hann at 75% overlap (ola_filter.py:33-79) — here all
   frames are built and FFT'd as one batch.
@@ -159,38 +160,32 @@ def _modal_setup(x, Fs, Tc, rh, pad_t):
 
 
 def modal_recurrence(a1, a2, Fmsig1, Fmsig2, u, device="cuda"):
-    """The per-sample recurrence of every mode, as PyTorch ops on `device`
-    in float64; returns the final P (Nch, Nt) as numpy (a1, a2: (Nt,)).
+    """The per-sample recurrence of every mode on `device` in float64;
+    returns the final P (Nch, Nt) as numpy (a1, a2: (Nt,)).
 
         P_new = a1 P_curr + a2 P_prev + Fmsig1 u[n+1] - Fmsig2 u[n]
 
-    The carry is (P_prev, P_curr), as the JAX scan's, so the reference's
-    swap subtlety (its loop swaps every step except after the last) comes
-    out right: the result is P_curr.  Each product and sum is its own
-    correctly rounded op, in the numpy loop's order, so on any device the
-    result equals `modal_recurrence_plain`'s bit for bit wherever the
-    device's float64 ops round as IEEE 754 says."""
+    On the card one K8 launch (`kernels.modal.modal_scan`, csrc/modal.cu)
+    runs every sample; on the CPU its plain version, PyTorch ops a sample
+    (`modal_scan_plain`).  The carry is (P_prev, P_curr), as the JAX scan's,
+    so the reference's swap subtlety (its loop swaps every step except after
+    the last) comes out right: the result is P_curr.  Each product and sum
+    is its own correctly rounded op, in the numpy loop's order, so on either
+    device the result equals `modal_recurrence_plain`'s bit for bit."""
     import torch
+
+    from pffdtd_tpu_torch.kernels.modal import modal_scan
 
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device cuda: torch.cuda.is_available() is "
                            "False; pass device='cpu'")
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    a1, a2, F1, F2 = t(a1), t(a2), t(Fmsig1), t(Fmsig2)
-    uT = t(np.ascontiguousarray(u.T[:, :, None]))     # (Nt + 1, Nch, 1)
-    P_prev, P_curr = torch.zeros_like(F1), torch.zeros_like(F1)
-    P_new, tmp = torch.empty_like(F1), torch.empty_like(F1)
-    for n in range(F1.shape[-1]):
-        torch.mul(a1, P_curr, out=P_new)
-        torch.mul(a2, P_prev, out=tmp)
-        P_new += tmp
-        torch.mul(F1, uT[n + 1], out=tmp)
-        P_new += tmp
-        torch.mul(F2, uT[n], out=tmp)
-        P_new -= tmp
-        P_prev, P_curr, P_new = P_curr, P_new, P_prev
-    return P_curr.cpu().numpy()
+    t = lambda a: torch.from_numpy(
+        np.ascontiguousarray(a, np.float64)).to(dev)
+    F1 = t(Fmsig1)
+    out = torch.empty_like(F1)
+    modal_scan(t(a1), t(a2), F1, t(Fmsig2), t(u), out)
+    return out.cpu().numpy()
 
 
 def modal_recurrence_plain(a1, a2, Fmsig1, Fmsig2, u):

@@ -34,6 +34,12 @@ material's (`EngineData.def_table`, indexed by `mat` as K2 indexes
 `coef_table`).  Every term runs in the state's dtype, as JAX's does; each
 function returns a 0-d tensor on the state's device, so a run never waits
 for the device.
+
+These functions are the plain building blocks of K7
+(`kernels.energy.energy_grid_pass_plain`, `energy_boundary_pass_plain`);
+on the card the engine runs K7 (`csrc/energy.cu`), which computes the same
+terms in one pass over the grid and one over the boundary, with no grid
+but L u.
 """
 
 from __future__ import annotations
@@ -50,7 +56,11 @@ from pffdtd_tpu_torch.kernels.stencil import (_as_dtype, abc_regions,
 
 @dataclass
 class EnergyScene:
-    """The static tensors and dtype-rounded constants of the functionals."""
+    """What the functionals and K7 read: the adjacency, the lossy nodes'
+    ssaf and material rows with the (Nmat+1, 3, MMb) D | E | F table, the
+    sources, the ABC regions (K7 finds Q from a point's indices and the
+    grid's extents) and the constants, rounded to the state's dtype.  No
+    per-voxel grid: L u lives in the engine's carry."""
 
     grid: GridSpec
     adj: torch.Tensor        # packed adjacency grid
@@ -62,6 +72,7 @@ class EnergyScene:
     lfac: float
     l: float
     l2: float
+    inv_l2: float            # 1/l2 in the state's dtype (see hamiltonian_grid)
     V_fac: float
     h: float
     c: float
@@ -77,6 +88,7 @@ class EnergyScene:
                    def_table=torch.from_numpy(data.def_table).to(adj.device),
                    in_ixyz=in_ixyz, regions=abc_regions(data.grid),
                    lfac=r(sc.lfac), l=r(sc.l), l2=r(sc.l2),
+                   inv_l2=r(1.0 / r(sc.l2)),
                    V_fac=r(data.V_fac), h=r(data.e_h), c=r(data.e_c),
                    Ts=r(data.e_Ts))
 
@@ -104,26 +116,34 @@ def _lossy_rows(es: EnergyScene, q):
     return es.def_table[es.mat.long(), q].T
 
 
-def hamiltonian(es: EnergyScene, u0, u1, Lu, vh, gh):
-    """H[n] from u0 = u^{n-1}, u1 = u^n, Lu = L u^{n-1} and the branch
-    states vh, gh (MMb, Nbl) before the step."""
+def hamiltonian_grid(es: EnergyScene, u0, u1, Lu):
+    """H[n]'s grid terms, the interior sum less the ABC correction, from
+    u0 = u^{n-1}, u1 = u^n and Lu = L u^{n-1}.
+
+    (u^n - u^{n-1})^2 / l2 is taken as a product with 1/l2 rounded to the
+    state's dtype (K7 does the same): an fp64 division a point made K7's
+    grid pass several times slower on the H100, and the product differs
+    from JAX's quotient by at most an ulp a term."""
     inner = _interior(es.grid)
     du = u1[inner] - u0[inner]
-    H = es.V_fac * 0.5 * es.h * (du * du / es.l2
+    H = es.V_fac * 0.5 * es.h * (du * du * es.inv_l2
                                  - u1[inner] * Lu[inner]).sum()
     del du
     corr = None
     for sl, Q in es.regions:
         d = u1[sl] - u0[sl]
-        s = (1.0 - 2.0 ** -Q) * (d * d / es.l2 - u1[sl] * Lu[sl]).sum()
+        s = (1.0 - 2.0 ** -Q) * (d * d * es.inv_l2 - u1[sl] * Lu[sl]).sum()
         corr = s if corr is None else corr + s
-    H = H - es.V_fac * 0.5 * es.h * corr
-    if es.ssaf.numel():
-        D, F = _lossy_rows(es, 0), _lossy_rows(es, 2)
-        ts = es.Ts * gh
-        H = H + es.V_fac * 0.5 * es.c / es.l2 * (
-            es.ssaf * (vh * vh * D + ts * ts * F)).sum()
-    return H
+    return H - es.V_fac * 0.5 * es.h * corr
+
+
+def hamiltonian_lossy(es: EnergyScene, vh, gh):
+    """H[n]'s lossy-branch term from the branch states vh, gh (MMb, Nbl)
+    before the step (a scene with lossy nodes only)."""
+    D, F = _lossy_rows(es, 0), _lossy_rows(es, 2)
+    ts = es.Ts * gh
+    return es.V_fac * 0.5 * es.c / es.l2 * (
+        es.ssaf * (vh * vh * D + ts * ts * F)).sum()
 
 
 def loss_increment(es: EnergyScene, unew, u0, vh_new, vh_old):

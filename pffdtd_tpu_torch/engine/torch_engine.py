@@ -38,9 +38,11 @@ comparison path).  The engine runs on the card unless `device="cpu"` is
 passed, and never falls back to the CPU.
 
 `energy_on=True` (the step route only, as the JAX engine asserts,
-jax_engine.py:448, 554) evaluates the energy functionals of
-`engine.energy` around every step: `run()` then fills `H_tot`, `E_lost` and
-`E_in`, and `energy_balance()` gives the balance the JAX engine's does.
+jax_engine.py:448, 554) evaluates the energy functionals around every step
+with K7 (`kernels.energy`: a grid pass before the step, a boundary pass
+after it; on the CPU their plain versions, composed from `engine.energy`):
+`run()` then fills `H_tot`, `E_lost` and `E_in`, and `energy_balance()`
+gives the balance the JAX engine's does.
 `run()` also takes JAX's per-chunk hook and checkpoint/resume
 (jax_engine.py:1181-1293): a checkpoint is an `.npz` of named arrays, the
 state at a chunk's end with the receiver (and energy) rows so far, and the
@@ -59,13 +61,16 @@ import torch
 
 from pffdtd_tpu_torch.engine.data import EngineData, abc_layer_mask, \
     mirror_index
-from pffdtd_tpu_torch.engine.energy import (EnergyScene, hamiltonian,
-                                            input_increment, laplacian,
-                                            loss_increment)
+from pffdtd_tpu_torch.engine.energy import EnergyScene
 from pffdtd_tpu_torch.io.simdata import MMb, read_sim_folder, write_outputs
 from pffdtd_tpu_torch.utils import rel_diff
 from pffdtd_tpu_torch.kernels.boundary import boundary_update, \
     boundary_update_plain
+from pffdtd_tpu_torch.kernels.energy import (energy_boundary_pass,
+                                             energy_boundary_pass_plain,
+                                             energy_grid_pass,
+                                             energy_grid_pass_plain,
+                                             scratch_size)
 from pffdtd_tpu_torch.kernels.stencil import stencil_step, stencil_step_plain
 from pffdtd_tpu_torch.kernels.tb import TBScene, tb_sweep, tb_sweep_plain
 
@@ -204,28 +209,41 @@ class TorchEngine:
 
         en: the run's energy carry (`_energy_carry`): Lu = L u^{n-1} on
         entry and L u^n on return, the accumulators E_lost and E_in (0-d,
-        updated in place), and vh_prev, a scratch for the branch states
-        before the step (K2 updates them in place)."""
+        updated in place), vh_prev and gh_prev, scratch for the branch
+        states before the step (K2 updates them in place), and part, the
+        passes' fp64 scratch.  K7's grid pass runs before the step, its
+        boundary pass after (the plain pair with use_kernels=False)."""
         es = self.energy_scene
         u0, u1, _, vh, gh = state
-        H = hamiltonian(es, u0, u1, en.Lu, vh, gh)
-        u0_in = u0.reshape(-1).index_select(0, self.in_ixyz)
+        if self.use_kernels:
+            grid_pass, boundary_pass = energy_grid_pass, energy_boundary_pass
+        else:
+            grid_pass = energy_grid_pass_plain
+            boundary_pass = energy_boundary_pass_plain
+        grid_pass(es, u0, u1, en.Lu, en.part)
         en.vh_prev.copy_(vh)
+        en.gh_prev.copy_(gh)
         self.step(state, sig_n, out_row)
-        # the step rotated the buffers: u0 is untouched, u1 is now state[0]
-        laplacian(es, u1, en.Lu)
-        en.E_lost += loss_increment(es, state[1], u0, state[3], en.vh_prev)
-        en.E_in += input_increment(es, state[1], u0_in, sig_n)
-        return H
+        # the step rotated the buffers: u0 = u^{n-1} is untouched, state[1]
+        # is u^{n+1} and state[3] the branch states after the step
+        H = torch.empty((), dtype=self.dtype, device=self.device)
+        return boundary_pass(es, state[1], u0, state[3], en.vh_prev,
+                             en.gh_prev, sig_n, en.part, H, en.E_lost,
+                             en.E_in)
 
     def _energy_carry(self, nt):
-        """L u^{n-1}, the accumulators, the vh scratch and the (nt,) rows
-        of H, E_lost and E_in (post-step accumulations), all on device."""
-        g, nbl = self.data.grid.shape, self.data.Nbl
+        """L u^{n-1}, the accumulators, the branch-state scratch, the fp64
+        scratch of the passes and the (nt,) rows of H, E_lost and E_in
+        (post-step accumulations), all on device."""
+        g, nbl = self.data.grid, self.data.Nbl
         return SimpleNamespace(
-            Lu=self._zeros(*g), E_lost=self._zeros(), E_in=self._zeros(),
-            vh_prev=self._zeros(MMb, nbl), H_rows=self._zeros(nt),
-            E_lost_rows=self._zeros(nt), E_in_rows=self._zeros(nt))
+            Lu=self._zeros(*g.shape), E_lost=self._zeros(),
+            E_in=self._zeros(), vh_prev=self._zeros(MMb, nbl),
+            gh_prev=self._zeros(MMb, nbl),
+            part=torch.zeros(scratch_size(g, nbl), dtype=torch.float64,
+                             device=self.device),
+            H_rows=self._zeros(nt), E_lost_rows=self._zeros(nt),
+            E_in_rows=self._zeros(nt))
 
     # ---------------------------------------------------------------- run
     def _sync(self):

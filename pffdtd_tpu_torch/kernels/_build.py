@@ -59,6 +59,17 @@ SIGNATURES = {
     # local x ranges: owned rows [xa, xb), computable rows [xl, xh), the
     # offset xo, and the stream
     "pf_tb_sweep_shard": _TB_ARGS + [_i] * 5 + [_vp],
+    # dtype, nn, u0, u1, adj, Lu, part, npart, Nx, Ny, Nz, folded, lfac,
+    # inv_l2, stream
+    "pf_energy_grid": [_i, _i, _vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _i, _i,
+                       _d, _d, _vp],
+    # dtype, unew, u0, vh, vh_prev, gh_prev, ssaf, mat, def, in_ixyz, sig,
+    # nbl, ns, part, npart, Nx, Ny, Nz, folded, Ts, cH, cH_lossy, cL_abc,
+    # cL_lossy, cIn, H, E_lost, E_in, stream
+    "pf_energy_boundary": [_i] + [_vp] * 10 + [_ll, _i, _vp, _ll]
+                          + [_i] * 4 + [_d] * 6 + [_vp] * 4,
+    # a1, a2, F1, F2, u, out, nch, Nt, stream
+    "pf_modal_recurrence": [_vp] * 6 + [_i, _i, _vp],
     # mode (0 read, 1 write, 2 copy), x, y, n, value, partial, out, stream
     "pf_stream": [_i, _vp, _vp, _ll, _d, _vp, _vp, _vp],
     # n -> blocks pf_stream launches

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K6 vs their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K8 vs their plain PyTorch versions, on the card.
 
 Marked `cuda`; each test skips, inside the `cuda` fixture, where
 torch.cuda.is_available() is False (a CUDA kernel has no CPU mode; its plain
@@ -17,10 +17,13 @@ routes to the single-device plain path in fp64.  The K3/K6 sweeps run at
 TB = 2, 3, 4, 8 (K6: 2, 3, 5), on planned chunks and on 7-row ones (a
 partial last chunk, and a source on a lossy node), with sources and
 receivers on chunk and tile edges; K4 on sizes that leave a tail after
-whole float4s and after whole blocks.  Beside the kernels: the energy
-route (K1 + K2 with the energy terms) against the plain path, a resume at
-a step that is no multiple of TB, and the modal filter on the card against
-its numpy loop, <= 1e-12.
+whole float4s and after whole blocks.  K7's two passes (the energy
+terms) from a random state: L u^n at the bounds above, the energies
+<= 1e-12 in fp64 and, in fp32, no further from the fp64 value than the
+fp32 plain passes; K8 (the modal recurrence) <= 1e-12 of its numpy loop.
+Beside the kernels: the energy route (K1 + K2 + K7) against the plain
+path, a resume at a step that is no multiple of TB, and the modal filter
+on the card against its numpy loop, <= 1e-12.
 """
 
 import dataclasses
@@ -34,6 +37,12 @@ from pffdtd_tpu_torch.kernels import tb as ktb
 from pffdtd_tpu_torch.io.simdata import MMb
 from pffdtd_tpu_torch.kernels.boundary import (boundary_update,
                                                boundary_update_plain)
+from pffdtd_tpu_torch.kernels.energy import (energy_boundary_pass,
+                                             energy_boundary_pass_plain,
+                                             energy_grid_pass,
+                                             energy_grid_pass_plain,
+                                             scratch_size)
+from pffdtd_tpu_torch.kernels.modal import modal_scan
 from pffdtd_tpu_torch.kernels.stencil import stencil_step, stencil_step_plain
 from pffdtd_tpu_torch.kernels.stream import stream, stream_plain
 from pffdtd_tpu_torch.kernels.stencil import (stencil_step_shard,
@@ -359,6 +368,75 @@ def test_resume_off_a_sweep_boundary_on_card(cuda, kw, tmp_path):
     assert np.array_equal(a, b)
 
 
+def _energy_inputs(eng, cuda, dtype, seed):
+    """A random state for K7's passes (L u^{n-1} with zero halos, as the
+    engine keeps it) and fresh outputs for a kernel and a plain call."""
+    d = eng.data
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(dtype)).to(cuda)
+    g = d.grid.shape
+    u0, u1, unew, Lu = t(*g), t(*g), t(*g), torch.zeros(g, dtype=eng.dtype,
+                                                       device=cuda)
+    Lu[1:-1, 1:-1, 1:-1] = t(*(n - 2 for n in g))
+    vh, vh_prev, gh_prev = t(MMb, d.Nbl), t(MMb, d.Nbl), t(MMb, d.Nbl)
+    sig = t(d.in_ixyz.size)
+
+    def outs():
+        z = lambda: torch.zeros((), dtype=eng.dtype, device=cuda)
+        part = torch.zeros(scratch_size(d.grid, d.Nbl), dtype=torch.float64,
+                           device=cuda)
+        return Lu.clone(), part, z(), z(), z()
+
+    return (u0, u1, unew, vh, vh_prev, gh_prev, sig), outs
+
+
+def _energy_passes(fns, es, ins, outs):
+    """Both passes from the inputs into fresh outputs: (Lu, H, dE_lost,
+    dE_in)."""
+    u0, u1, unew, vh, vh_prev, gh_prev, sig = ins
+    Lu, part, H, E_lost, E_in = outs()
+    fns[0](es, u0, u1, Lu, part)
+    fns[1](es, unew, u0, vh, vh_prev, gh_prev, sig, part, H, E_lost, E_in)
+    return Lu, H, E_lost, E_in
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("name", list(CASES))
+def test_energy_passes_match_plain(cuda, name, dtype):
+    """K7's two passes vs their plain versions from a random state.  L u^n:
+    <= 1e-6 (fp32), 1e-12 (fp64).  H, dE_lost, dE_in: <= 1e-12 in fp64; in
+    fp32 K7 (fp64 sums) is no further from the fp64 value of the same
+    terms (the fp64 plain passes on the same inputs, with the fp32 run's
+    constants) than the fp32 plain passes are."""
+    eng = _engine(name, dtype, energy_on=True)
+    es = eng.energy_scene
+    ins, outs = _energy_inputs(eng, cuda, dtype, seed=7)
+    n = (energy_grid_pass.launches, energy_boundary_pass.launches)
+    k = _energy_passes((energy_grid_pass, energy_boundary_pass), es, ins,
+                       outs)
+    plain = (energy_grid_pass_plain, energy_boundary_pass_plain)
+    p = _energy_passes(plain, es, ins, outs)
+    torch.cuda.synchronize()
+    assert (energy_grid_pass.launches, energy_boundary_pass.launches) == (
+        n[0] + 1, n[1] + 1)
+    assert _rel(k[0], p[0]) <= TOL[dtype]
+    if dtype == np.float64:
+        for a, b in zip(k[1:], p[1:]):
+            assert _rel(a, b) <= 1e-12
+        return
+    es64 = dataclasses.replace(es, ssaf=es.ssaf.double(),
+                               def_table=es.def_table.double())
+    ins64 = tuple(x.double() for x in ins)
+
+    def outs64():
+        return tuple(x.double() for x in outs())
+
+    r = _energy_passes(plain, es64, ins64, outs64)
+    for a, b, ref in zip(k[1:], p[1:], r[1:]):
+        assert abs(float(a) - float(ref)) <= abs(float(b) - float(ref))
+
+
 def test_modal_filter_on_card(cuda):
     from pffdtd_tpu_torch.analysis.air_abs import (apply_modal_filter,
                                                    apply_modal_filter_plain)
@@ -367,6 +445,23 @@ def test_modal_filter_on_card(cuda):
     y = apply_modal_filter(x, 48000.0, 20.0, 50.0, device="cuda")
     yn = apply_modal_filter_plain(x, 48000.0, 20.0, 50.0)
     assert np.abs(y - yn).max() <= 1e-12 * np.abs(yn).max()
+
+
+@pytest.mark.parametrize("nt", [1, 130, 2049 + 3])
+def test_modal_scan_matches_plain(cuda, nt):
+    """K8 vs modal_recurrence_plain <= 1e-12, one launch a call; lengths
+    below a block, past one, and past one staged chunk of u."""
+    from pffdtd_tpu_torch.analysis.air_abs import (_modal_setup,
+                                                   modal_recurrence,
+                                                   modal_recurrence_plain)
+
+    x = np.random.default_rng(nt).standard_normal((3, nt))
+    setup = _modal_setup(x, 48000.0, 20.0, 50.0, 0.0)
+    n = modal_scan.launches
+    P = modal_recurrence(*setup, device="cuda")
+    assert modal_scan.launches == n + 1
+    Pn = modal_recurrence_plain(*setup)
+    assert np.abs(P - Pn).max() <= 1e-12 * np.abs(Pn).max()
 
 
 @pytest.mark.parametrize("backend", ["step", "tb"])
