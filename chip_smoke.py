@@ -81,13 +81,18 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    resumed in a fresh engine to 29: receivers (and energies) bitwise equal
    to the uninterrupted run; (d) in those resumed runs a hook records the
    steps it sees, which must be the chunk ends; (e) the modal air-absorption
-   filter: K8 against its numpy loop (`modal_recurrence_plain`) <= 1e-12
-   relative, bitwise equality printed, on the headline receivers padded to
-   4,800 samples; then on 2 x 48,000 samples (1 s at 48 kHz)
-   `apply_modal_filter` end to end (host clock, one K8 launch checked),
-   and K8 alone (CUDA events) beside its plain version on the card
-   (<= 1e-12).  The checkpoints go to a temporary directory inside the
-   checkout, removed after use.
+   filter: K8 against its numpy loop (`modal_recurrence_plain`) and
+   against its design's plain version on the card (`modal_split_plain`)
+   <= 1e-12 relative, its loop modes (q < q0, q >= Nt - q0) bitwise equal
+   to the numpy loop, whole-array bitwise equality printed, on the headline
+   receivers padded to 4,800 samples; then on 2 x 48,000 samples (1 s at
+   48 kHz) `apply_modal_filter` end to end (host clock, one K8 launch
+   checked), and K8 alone (CUDA events) beside its plain version on the
+   card (<= 1e-12, loop modes bitwise), with q0 and K8's share of two
+   bounds: the loop's operations and the split's (operations and fp64
+   issue slots); and K8's entry point timed at other splits, q0 = Nt (every
+   mode on the loop: the previous design) down to q0 = 1.  The checkpoints
+   go to a temporary directory inside the checkout, removed after use.
 7. Room to receivers with the port alone: two materials fitted with
    fit_to_Sabs_oct_11 (walls 0.05..0.30, floor 0.02..0.10, no file
    written), a 36 x 28 m hall whose ceiling rises from 17 m to 23 m along y
@@ -161,7 +166,9 @@ from pffdtd_tpu_torch.kernels.energy import (energy_boundary_pass,
                                              energy_grid_pass,
                                              energy_grid_pass_plain,
                                              scratch_size, shell_points)
-from pffdtd_tpu_torch.kernels.modal import modal_scan, modal_scan_plain
+from pffdtd_tpu_torch.kernels.modal import (loop_modes, modal_scan,
+                                            modal_scan_plain,
+                                            modal_split_plain, serial_modes)
 from pffdtd_tpu_torch.kernels.stencil import (stencil_step,
                                               stencil_step_plain,
                                               stencil_step_shard,
@@ -910,16 +917,26 @@ def phase6(sim, eng, u_k, t_k, small):
     t_np = time.perf_counter() - t0
     err_abs = float(np.abs(P - Pn).max())
     err = err_abs / float(np.abs(Pn).max())
+    loop = loop_modes(np.arange(MODAL_CHECK), MODAL_CHECK)
+    ts = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in setup]
+    Ps = modal_split_plain(*ts, torch.arange(MODAL_CHECK, device="cuda"))
+    err_s = float(np.abs(P - Ps.cpu().numpy()).max() / np.abs(Pn).max())
     y = apply_modal_filter(x, FS, 20.0, 50.0, device="cuda")
     yn = apply_modal_filter_plain(x, FS, 20.0, 50.0)
     err_y = float(np.abs(y - yn).max() / np.abs(yn).max())
-    print(f"[6e] modal recurrence {r.shape[0]} x {MODAL_CHECK}: K8 "
+    same_loop = np.array_equal(P[:, loop], Pn[:, loop])
+    print(f"[6e] modal recurrence {r.shape[0]} x {MODAL_CHECK} (q0 "
+          f"{serial_modes(MODAL_CHECK)}: {loop.sum()} loop modes): K8 "
           f"{t_card:.3f} s (host clock, copies included) vs the numpy loop "
-          f"{t_np:.3f} s, max rel err {err:.3e} (abs {err_abs:.3e}), bitwise "
-          f"equal {np.array_equal(P, Pn)}; filtered RIRs vs "
+          f"{t_np:.3f} s, max rel err {err:.3e} (abs {err_abs:.3e}), vs "
+          f"modal_split_plain on the card {err_s:.3e}; loop modes bitwise "
+          f"equal {same_loop}, every mode bitwise equal "
+          f"{np.array_equal(P, Pn)}; filtered RIRs vs "
           f"apply_modal_filter_plain {err_y:.3e}", flush=True)
-    require(err <= 1e-12 and err_y <= 1e-12,
-            f"K8 vs the numpy loop: {err}, filtered {err_y}")
+    require(err <= 1e-12 and err_y <= 1e-12 and err_s <= 1e-12,
+            f"K8 vs the numpy loop: {err}, filtered {err_y}, vs the split's "
+            f"plain version {err_s}")
+    require(same_loop, "K8's loop modes differ from the numpy loop's bits")
     x = np.random.default_rng(SEED).standard_normal((2, MODAL_TIMED))
     reset_counts()
     t0 = time.perf_counter()
@@ -932,25 +949,55 @@ def phase6(sim, eng, u_k, t_k, small):
     ts = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in
           _modal_setup(x, FS, 20.0, 50.0, 0.0)]
     out, out_p = torch.empty_like(ts[2]), torch.empty_like(ts[2])
-    k8_ms = time_ms(lambda: modal_scan(*ts, out), 3)
+    k8_ms = time_ms(lambda: modal_scan(*ts, out), 10)
     plain_ms = once_ms(lambda: modal_scan_plain(*ts, out_p))
     torch.cuda.synchronize()
     same = torch.equal(out, out_p)
-    err_p = rel(out, out_p)[0]
     nch, nt = ts[2].shape
-    nops = 7.0 * nch * nt * nt
+    loop = loop_modes(torch.arange(nt, device="cuda"), nt)
+    same_loop = torch.equal(out[:, loop], out_p[:, loop])
+    err_p = rel(out, out_p)[0]
+    q0 = serial_modes(nt)
+    ns = int(loop.sum())
+    nc = nt - ns
+    loop_ops = 7.0 * nch * nt * nt
+    nops = float(nt) * (7 * nch * ns + (3 + 4 * nch) * nc)
+    slots = float(nt) * (7 * nch * ns + (2 + 2 * nch) * nc)
+    b_loop, b_ops = (n / FP64_OPS * 1e3 for n in (loop_ops, nops))
+    b_slots = slots / (FP64_OPS / 2) * 1e3
     nbytes = 8 * (2 * nt + 3 * nch * nt + nch * (nt + 1))
     print(f"[6e] modal filter 2 x {MODAL_TIMED} (1 s at 48 kHz): "
           f"apply_modal_filter {t_48k:.3f} s end to end (host clock), "
-          f"launches (K1 .. K8) {c}; K8 alone {k8_ms:.4f} ms (CUDA events) "
-          f"= {nops / k8_ms / 1e9:.3f} fp64 Top/s, bound "
-          f"{nops / FP64_OPS * 1e3:.4f} ms ({nops:.4e} operations at "
-          f"{FP64_OPS:.0e}/s); the plain version on the card "
-          f"{plain_ms:.1f} ms, max rel err {err_p:.3e}, bitwise equal "
-          f"{same}", flush=True)
+          f"launches (K1 .. K8) {c}; q0 {q0}: {ns} loop modes, {nc} "
+          f"contracted; K8 alone {k8_ms:.4f} ms (CUDA events); bounds at "
+          f"{FP64_OPS:.0e} fp64 op/s: the loop's {loop_ops:.4e} operations "
+          f"{b_loop:.4f} ms ({b_loop / k8_ms:.1%} of K8), the split's "
+          f"{nops:.4e} operations {b_ops:.4f} ms ({b_ops / k8_ms:.1%}), its "
+          f"{slots:.4e} fp64 issue slots {b_slots:.4f} ms "
+          f"({b_slots / k8_ms:.1%}); the plain version (the loop) on the "
+          f"card {plain_ms:.1f} ms, max rel err {err_p:.3e}, loop modes "
+          f"bitwise equal {same_loop}, every mode bitwise equal {same}",
+          flush=True)
     require(err_p <= 1e-12, f"K8 vs its plain version at {MODAL_TIMED}: "
             f"{err_p}")
-    del ts, out, out_p
+    require(same_loop, f"K8's loop modes at {MODAL_TIMED} differ from the "
+            f"plain loop's bits")
+    # K8's entry point at other splits (measurement only, not counted):
+    # q0 = Nt puts every mode on the loop, K8's previous design
+    lib = _build.library()
+    stream_ = torch.cuda.current_stream().cuda_stream
+
+    def k8_at(q):
+        _build.check(lib.pf_modal_recurrence(
+            *(t.data_ptr() for t in ts), out_p.data_ptr(), nch, nt, q,
+            stream_), "pf_modal_recurrence")
+
+    sweep = {q: time_ms(lambda: k8_at(q), 5)
+             for q in (nt, 2 * q0, q0 * 3 // 2, q0, q0 // 2, 1)}
+    print(f"[6e] K8 at 2 x {MODAL_TIMED} by q0 (ms, CUDA events): "
+          + ", ".join(f"q0 {q} {v:.4f}" for q, v in sweep.items())
+          + f" (q0 {nt}: every mode on the loop)", flush=True)
+    del ts, out, out_p, Ps
     return k7_launches, (c[7], err_abs, k8_ms, plain_ms, nbytes, nops, None)
 
 
@@ -1418,6 +1465,7 @@ def main():
             "bound_roof_ms": nbytes / roof / 1e6,
             "launches_1e9": p8.get(name, (0, None))[0],
             "ms_1e9": p8.get(name, (0, None))[1]})
+    print(card)   # again, where the end of a long output keeps it
     print(json.dumps(rec))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

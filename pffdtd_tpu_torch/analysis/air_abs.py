@@ -15,9 +15,10 @@ Physics parity targets:
 - `apply_modal_filter`: DCT-domain bank of damped 1-D wave equations tuned
   to the attenuation curve [Hamilton, I3DA 2021] (modal_filter.py:34-86) —
   here the per-sample recurrence runs over all modes at once in float64,
-  on the card as one launch of K8 (`modal_recurrence`, csrc/modal.cu),
-  beside its plain numpy loop (`modal_recurrence_plain`; the reference
-  uses a numba loop).
+  on the card as one launch of K8 (`modal_recurrence`, csrc/modal.cu: the
+  loop on the modes at both ends of the spectrum, a contraction with each
+  mode's impulse response on the rest), beside its plain numpy loop
+  (`modal_recurrence_plain`; the reference uses a numba loop).
 - `apply_ola_filter`: STFT overlap-add with distance-dependent e^{-alpha d}
   gains, 1024-tap Hann at 75% overlap (ola_filter.py:33-79) — here all
   frames are built and FFT'd as one batch.
@@ -169,9 +170,12 @@ def modal_recurrence(a1, a2, Fmsig1, Fmsig2, u, device="cuda"):
     runs every sample; on the CPU its plain version, PyTorch ops a sample
     (`modal_scan_plain`).  The carry is (P_prev, P_curr), as the JAX scan's,
     so the reference's swap subtlety (its loop swaps every step except after
-    the last) comes out right: the result is P_curr.  Each product and sum
-    is its own correctly rounded op, in the numpy loop's order, so on either
-    device the result equals `modal_recurrence_plain`'s bit for bit."""
+    the last) comes out right: the result is P_curr.  On the CPU each
+    product and sum is its own correctly rounded op, in the numpy loop's
+    order, so the result equals `modal_recurrence_plain`'s bit for bit.  On
+    the card K8 gives those bits on the modes q < q0 and q >= Nt - q0
+    (`kernels.modal.serial_modes`) and reorders the sums on the others,
+    within 1e-12 of max|P|."""
     import torch
 
     from pffdtd_tpu_torch.kernels.modal import modal_scan
@@ -189,10 +193,11 @@ def modal_recurrence(a1, a2, Fmsig1, Fmsig2, u, device="cuda"):
 
 
 def modal_recurrence_plain(a1, a2, Fmsig1, Fmsig2, u):
-    """The numpy loop of the JAX package's `use_jax=False` branch."""
+    """The numpy loop of the JAX package's `use_jax=False` branch; over
+    every sample of u (Nch, Nt + 1) on the modes given (any number)."""
     P_prev = np.zeros_like(Fmsig1)
     P_curr = np.zeros_like(Fmsig1)
-    for n in range(Fmsig1.shape[-1]):
+    for n in range(u.shape[-1] - 1):
         P_new = (a1 * P_curr + a2 * P_prev
                  + Fmsig1 * u[:, n + 1][:, None]
                  - Fmsig2 * u[:, n][:, None])

@@ -68,8 +68,8 @@ SIGNATURES = {
     # cL_lossy, cIn, H, E_lost, E_in, stream
     "pf_energy_boundary": [_i] + [_vp] * 10 + [_ll, _i, _vp, _ll]
                           + [_i] * 4 + [_d] * 6 + [_vp] * 4,
-    # a1, a2, F1, F2, u, out, nch, Nt, stream
-    "pf_modal_recurrence": [_vp] * 6 + [_i, _i, _vp],
+    # a1, a2, F1, F2, u, out, nch, Nt, q0, stream
+    "pf_modal_recurrence": [_vp] * 6 + [_i, _i, _i, _vp],
     # mode (0 read, 1 write, 2 copy), x, y, n, value, partial, out, stream
     "pf_stream": [_i, _vp, _vp, _ll, _d, _vp, _vp, _vp],
     # n -> blocks pf_stream launches

@@ -20,7 +20,9 @@ receivers on chunk and tile edges; K4 on sizes that leave a tail after
 whole float4s and after whole blocks.  K7's two passes (the energy
 terms) from a random state: L u^n at the bounds above, the energies
 <= 1e-12 in fp64 and, in fp32, no further from the fp64 value than the
-fp32 plain passes; K8 (the modal recurrence) <= 1e-12 of its numpy loop.
+fp32 plain passes; K8 (the modal recurrence) <= 1e-12 of its numpy loop
+and of its design's plain version (`modal_split_plain`), its loop modes
+bitwise equal to the numpy loop.
 Beside the kernels: the energy route (K1 + K2 + K7) against the plain
 path, a resume at a step that is no multiple of TB, and the modal filter
 on the card against its numpy loop, <= 1e-12.
@@ -462,6 +464,33 @@ def test_modal_scan_matches_plain(cuda, nt):
     assert modal_scan.launches == n + 1
     Pn = modal_recurrence_plain(*setup)
     assert np.abs(P - Pn).max() <= 1e-12 * np.abs(Pn).max()
+
+
+@pytest.mark.parametrize("nt, Fs, nch", [(4803, 48000.0, 2),
+                                         (2052, 8000.0, 5),
+                                         (1030, 48000.0, 8),
+                                         (12000, 8000.0, 1),
+                                         (3000, 48000.0, 3)])
+def test_modal_scan_matches_split_plain(cuda, nt, Fs, nch):
+    """K8 vs `modal_split_plain` on the card <= 1e-12 of max|P|, and K8's
+    loop modes (q < q0, q >= Nt - q0) bitwise equal to the numpy loop; one
+    to eight channels (channel groups of 1-4), lengths past one staged
+    chunk of each path."""
+    from pffdtd_tpu_torch.analysis.air_abs import (_modal_setup,
+                                                   modal_recurrence,
+                                                   modal_recurrence_plain)
+    from pffdtd_tpu_torch.kernels.modal import loop_modes, modal_split_plain
+
+    x = np.random.default_rng(nt + nch).standard_normal((nch, nt))
+    setup = _modal_setup(x, Fs, 20.0, 50.0, 0.0)
+    P = modal_recurrence(*setup, device="cuda")
+    ts = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in setup]
+    Ps = modal_split_plain(*ts, torch.arange(nt, device="cuda"))
+    Ps = Ps.cpu().numpy()
+    assert np.abs(P - Ps).max() <= 1e-12 * np.abs(Ps).max()
+    loop = loop_modes(np.arange(nt), nt)
+    Pn = modal_recurrence_plain(*setup)
+    assert np.array_equal(P[:, loop], Pn[:, loop])
 
 
 @pytest.mark.parametrize("backend", ["step", "tb"])

@@ -153,6 +153,7 @@ import torch
 torch.set_num_threads(2)
 import chip_smoke
 import pffdtd_tpu_torch.analysis.air_abs
+import pffdtd_tpu_torch.analysis.modal_accuracy
 import pffdtd_tpu_torch.analysis.process_outputs
 import pffdtd_tpu_torch.cli
 import pffdtd_tpu_torch.convert
