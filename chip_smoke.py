@@ -6,7 +6,7 @@
 
 Phases, each fatal on failure (no CPU fallback; exit code != 0):
 1. Device and build: the card's name and power limit (nvidia-smi), then the
-   build of the CUDA kernels K1 and K5 (csrc/stencil.cu), K2
+   build of the CUDA kernels K1, K5 and K1e (csrc/stencil.cu), K2
    (csrc/boundary.cu), K3 (csrc/tb.cu), K6 (csrc/tb.cu through
    csrc/tb_shard.cu), K4 (csrc/stream.cu), K7 (csrc/energy.cu) and K8
    (csrc/modal.cu) from this checkout's sources, one nvcc per source, all
@@ -26,9 +26,14 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    H, dE_lost and dE_in no further from their fp64 value (the fp64 plain
    passes on the same inputs with the fp32 run's constants) than the fp32
    plain passes' (K7 sums in fp64 and must not be less accurate than what
-   it replaces).  Then fp64 on the small scenes of phase 3 (K3 at TB = 2,
-   3 and 8; K7, every output), <= 1e-12.  Kernels and plain versions are
-   timed with CUDA events.
+   it replaces).  K1e, K1's energy mode (the step and K7's grid pass in
+   one launch): u^{n+1} and L u^n bitwise equal to its plain version, its
+   partial sums within 1e-12 of K7's grid pass's (bitwise equality
+   printed), H after K7's boundary pass as K7's (the one energy that reads
+   K1e's sums); timed in turns with K1 and K7's grid pass on the same
+   inputs.  Then fp64 on the small
+   scenes of phase 3 (K3 at TB = 2, 3 and 8; K7 and K1e, every output),
+   <= 1e-12.  Kernels and plain versions are timed with CUDA events.
    K5 and K6, the shard modes (in phase 5, on the engines it builds): K5 vs
    its plain version on the first, a middle and the last slab of the D = 4
    split, <= 1e-6; K6 with TB = 2 and 3 on the same slabs (fields, owned
@@ -62,15 +67,22 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    time per step (CUDA events around the copies, one extra run) and the
    engine's peak device memory.  Each engine is freed before the next.
 6. Energy accounting, checkpoint/resume, the per-chunk hook and the modal
-   filter: (a) the small fp64 scenes with energy on (K1 + K2 + K7, launch
-   counts checked: K7 twice a step, its grid and boundary passes):
-   balance < 1e-10, E_lost[-1] > 0, H_tot, E_lost and E_in <= 1e-12 of
-   their largest magnitude against the plain path on the card, receivers
-   bitwise equal to the energy-off run; (b) the headline scene with energy
-   on, 128 steps in fp32 (MVPS beside phase 4's step route, receivers
-   bitwise equal to it, 128 K1, 128 K2 and 256 K7 launches) and in fp64
-   (MVPS beside the fp64 step route, balance < 1e-9, the JAX package's bar
-   for a real room), each with its peak device memory, then 384 fp64 steps
+   filter: (a) the small fp64 scenes with energy on (K1e + K2 + K7's
+   boundary pass a step, launch counts checked: no K1 and no K7 grid
+   pass): balance < 1e-10, E_lost[-1] > 0, H_tot, E_lost and E_in <=
+   1e-12 of their largest magnitude against the plain path on the card,
+   receivers bitwise equal to the energy-off run, and receivers, energies
+   and final fields bitwise equal to the two-pass route (K7's grid pass,
+   K1, K2, K7's boundary pass: the route before K1e, composed here from
+   the wrappers); (b) the headline scene with energy on, 128 steps in fp32
+   (receivers bitwise equal to phase 4's step route, 128 K1e, 128 K2 and
+   128 K7 launches) and in fp64 (balance < 1e-9, the JAX package's bar for
+   a real room), each with its peak device memory, then three runs of it
+   and three of the two-pass route in turns: every run bitwise equal,
+   launches checked per run, MVPS and ms a step, best of 3, beside the
+   step route's (fp64: its own run); the whole fp32 energy step's bound
+   (each input read and each output written once) beside both routes'
+   ms a step; then 384 fp64 steps
    (the source sits 11.5 m from the floor and the ceiling, about 250 steps
    of one h): balance < 1e-9, and E_lost grows from step 240 to 384 by
    more than its value at step 240; a checkpoint of the
@@ -112,7 +124,7 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    bn_ixyz, adj_bn, mat_bn and saf_bn, cart and FCC; cart and folded FCC
    in fp64 with energy on (K1 + K2) and on the tb route (K3) against the
    port's NumpyEngine on the host <= 1e-12 of each series' largest
-   magnitude, balance < 1e-10, E_lost[-1] > 0.
+   magnitude, balance < 1e-10, E_lost[-1] > 0 (K1e + K2 + K7 a step).
 8. A billion voxels: `python -m pffdtd_tpu_torch.examples.setup_1e9
    --check` in a subprocess (host memory of its own; a nonzero exit
    fails the phase), the 32 x 25 x 20 m box at h = 0.025 (1288 x 1008 x
@@ -121,11 +133,15 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    steps, the best of two runs) on the step route (K1 + K2), the tb route
    (K3, TB = 3) and four x-slabs on this card (K5 + K2), each engine
    freed before the next; each kernel against its plain version at these
-   shapes where the check fits the card's free memory.  Printed: the grid, Nb and Nbl, host seconds per
+   shapes where the check fits the card's free memory; then one fp64 run
+   of the energy route (K1e + K2 + K7) on the same setup: balance < 1e-9,
+   its ms a step, MVPS, peak device memory beside its arrays' reckoned
+   size and the seconds it adds (no plain check: the plain passes would
+   not fit the card).  Printed: the grid, Nb and Nbl, host seconds per
    setup stage and the peak RSS, each route's MVPS, ms a step, device
    peak memory and launches (checked against the steps), and the
    receivers of tb and x4 against step (<= 1e-5 of max |u_out|, finite,
-   nonzero).  The launches of its K1, K2, K3 and K5 and their times a
+   nonzero; the fp64 energy route's difference printed).  The launches of its K1, K2, K3 and K5 and their times a
    call in the checks go into the kernels' record as `launches_1e9` and
    `ms_1e9`.
 The last two lines are the kernels' JSON record and
@@ -161,7 +177,8 @@ from pffdtd_tpu_torch.io.simdata import MMb
 from pffdtd_tpu_torch.kernels import _build
 from pffdtd_tpu_torch.kernels.boundary import boundary_update, \
     boundary_update_plain
-from pffdtd_tpu_torch.kernels.energy import (energy_boundary_pass,
+from pffdtd_tpu_torch.kernels.energy import (GRID_THREADS, MID_BLOCKS,
+                                             energy_boundary_pass,
                                              energy_boundary_pass_plain,
                                              energy_grid_pass,
                                              energy_grid_pass_plain,
@@ -169,7 +186,9 @@ from pffdtd_tpu_torch.kernels.energy import (energy_boundary_pass,
 from pffdtd_tpu_torch.kernels.modal import (loop_modes, modal_scan,
                                             modal_scan_plain,
                                             modal_split_plain, serial_modes)
-from pffdtd_tpu_torch.kernels.stencil import (stencil_step,
+from pffdtd_tpu_torch.kernels.stencil import (stencil_energy_step,
+                                              stencil_energy_step_plain,
+                                              stencil_step,
                                               stencil_step_plain,
                                               stencil_step_shard,
                                               stencil_step_shard_plain)
@@ -220,12 +239,17 @@ KERNELS = {  # name: (source, replaces)
                         "pffdtd_tpu/engine/jax_engine.py:704"),
     "K8 modal_recurrence": (SRC + "modal.cu",
                             "pffdtd_tpu/analysis/air_abs.py:157"),
+    "K1e stencil_energy_step": (SRC + "stencil.cu",
+                                "pffdtd_tpu/engine/jax_engine.py:704"),
 }
-# the wrappers of K1 .. K8, whose launches add up per kernel: K7's grid
-# and boundary passes are two launches a step
-WRAPPERS = ((stencil_step,), (boundary_update,), (tb_sweep,), (stream,),
-            (stencil_step_shard,), (tb_sweep_shard,),
-            (energy_grid_pass, energy_boundary_pass), (modal_scan,))
+# each kernel's wrappers, whose launches add up per kernel; K7's boundary
+# pass (K7) and its grid pass (K7g, which the energy route no longer
+# launches: K1e computes it) count apart
+WRAPPERS = {"K1": (stencil_step,), "K2": (boundary_update,),
+            "K3": (tb_sweep,), "K4": (stream,), "K5": (stencil_step_shard,),
+            "K6": (tb_sweep_shard,), "K7": (energy_boundary_pass,),
+            "K8": (modal_scan,), "K1e": (stencil_energy_step,),
+            "K7g": (energy_grid_pass,)}
 ZERO = (0,) * len(WRAPPERS)
 # phase 6b: the headline energy runs, and the long fp64 one that reaches
 # the floor and the ceiling (11.5 m from the source: about 250 steps of
@@ -247,8 +271,10 @@ FLOOR_SABS = np.linspace(0.02, 0.10, 11)
 # phase 5: (slabs, route) on cuda:0
 SHARDED = ((4, "step", {}), (4, "pair", {}), (4, "tb", {"tb": 3}),
            (2, "step", {}))
-# phase 8: the grid setup_1e9 must build, and its subprocess's time limit
+# phase 8: the grid setup_1e9 must build, its routes, and its subprocess's
+# time limit
 GRID_1E9 = [1288, 1008, 808]
+ROUTES_1E9 = ("step", "tb", "x4", "energy")
 TIMEOUT_1E9 = 900
 
 
@@ -495,7 +521,7 @@ def k7_check(eng, gen, timing_reps=0):
     H, dE_lost and dE_in, {name: (K7, plain, fp64 reference)} of the
     energies (the reference, fp32 states only: the fp64 plain passes on the
     same inputs with the fp32 run's constants), (grid, boundary) kernel ms,
-    (grid, boundary) plain ms, bytes of one step's two passes)."""
+    (grid, boundary) plain ms, (grid, boundary) bytes a pass must move)."""
     d = eng.data
     es = EnergyScene.make(d, adj=eng.adj, ssaf=eng.ssaf, mat=eng.mat,
                           in_ixyz=eng.in_ixyz)
@@ -530,10 +556,12 @@ def k7_check(eng, gen, timing_reps=0):
                time_ms(lambda: energy_boundary_pass_plain(es, *b_args,
                                                           *op[1:]), 2))
     isz, nbl = ins[0].element_size(), d.Nbl
+    pairs = 2 * grid_blocks(d.grid)     # the grid pass's partial sums
     nbytes = (d.grid.n_interior * (4 * isz + eng.adj.element_size())
-              + shell_points(d.grid) * 2 * isz
+              + 8 * pairs,
+              shell_points(d.grid) * 2 * isz
               + nbl * (3 * MMb * isz + isz + 4)
-              + d.in_ixyz.size * (3 * isz + 8) + 8 * ok[1].numel())
+              + d.in_ixyz.size * (3 * isz + 8) + 8 * (ok[1].numel() - pairs))
     del ins, ok, op
     torch.cuda.empty_cache()
     return r_Lu, err, en, ms, pms, nbytes
@@ -544,22 +572,142 @@ def k7_print_require(where, r, fp32):
     docstring)."""
     r_Lu, err, en, ms, pms, nbytes = r
     t = (f"; grid pass {ms[0]:.4f} ms, boundary pass {ms[1]:.4f} ms (plain "
-         f"{pms[0]:.4f}, {pms[1]:.4f}); bound of the two "
-         f"{nbytes / HBM_BPS * 1e3:.4f} ms at the published rate, "
-         f"{nbytes / 1e9:.4f} GB" if ms[0] is not None else "")
+         f"{pms[0]:.4f}, {pms[1]:.4f}); bounds at the published rate "
+         f"{nbytes[0] / HBM_BPS * 1e3:.4f} and "
+         f"{nbytes[1] / HBM_BPS * 1e3:.4f} ms ({nbytes[0] / 1e9:.4f} and "
+         f"{nbytes[1] / 1e9:.4f} GB)" if ms[0] is not None else "")
     print(f"[2] K7 {where}: L u^n max rel err {r_Lu:.3e}; energies (K7, "
           f"plain, fp64 reference) {en}; max abs err {err:.3e}{t}",
           flush=True)
     require(r_Lu <= (1e-6 if fp32 else 1e-12),
             f"K7 {where}: L u^n disagrees: {r_Lu}")
+    require_energies(f"K7 {where}", en, fp32)
+
+
+def require_energies(where, en, fp32):
+    """{name: (kernel, plain, fp64 reference)}: in fp32 the kernel's value
+    no further from the fp64 reference than the plain version's, in fp64
+    within 1e-12 of the plain version's."""
     for k, (a, b, ref) in en.items():
         if fp32:
             require(abs(a - ref) <= abs(b - ref),
-                    f"K7 {where}: {k} {a} is further from the fp64 value "
+                    f"{where}: {k} {a} is further from the fp64 value "
                     f"{ref} than the fp32 plain path's {b}")
         else:
             require(abs(a - b) <= 1e-12 * abs(b),
-                    f"K7 {where}: {k} {a} vs plain {b}")
+                    f"{where}: {k} {a} vs plain {b}")
+
+
+def k1e_check(eng, gen, timing_reps=0):
+    """K1e (K1's energy mode) vs its plain version from a random state on
+    the scene of `eng`, its scratch vs K7's grid pass's, and the energies
+    after K7's boundary pass on each scratch (as k7_check).
+
+    Returns a namespace: same (u^{n+1} and L u^n bitwise equal to the
+    plain version's), grid_same (L u^n and the scratch bitwise equal to
+    the grid pass's), sums_rel (the scratch's max rel err against the grid
+    pass's), en {name: (K1e, plain, fp64 reference or None)}, err (max
+    abs err of u^{n+1}, L u^n and the energies against the plain
+    version), ms {K1e, K1, K7g: kernel ms a call, timed in turns on the
+    same inputs; plain: the plain version's} or None, and nbytes, what a
+    K1e call must move: u^{n-1}, u^n, adj and L u^{n-1} read, u^{n+1} and
+    L u^n written once an interior point, and the blocks' sums."""
+    d = eng.data
+    g, sc = d.grid, d.sc
+    es = EnergyScene.make(d, adj=eng.adj, ssaf=eng.ssaf, mat=eng.mat,
+                          in_ixyz=eng.in_ixyz)
+    ins = energy_inputs(es, gen, eng.dtype)
+    u0, u1, unew, Lu0, vh, vh_prev, gh_prev, sig = ins
+
+    def run(k1e, boundary_pass):
+        outs = energy_outputs(es, Lu0)
+        out = torch.zeros_like(u0)
+        k1e(u0, u1, eng.adj, out, *outs[:2], g, sc, es)
+        boundary_pass(es, unew, u0, vh, vh_prev, gh_prev, sig, *outs[1:])
+        return (out,) + outs
+
+    ok = run(stencil_energy_step, energy_boundary_pass)
+    op = run(stencil_energy_step_plain, energy_boundary_pass_plain)
+    og = energy_outputs(es, Lu0)[:2]
+    energy_grid_pass(es, u0, u1, *og)
+    torch.cuda.synchronize()
+    inner = (slice(1, -1),) * 3
+    # the grid sums and their middle stage (the boundary pass's follow)
+    sums = slice(0, 2 * grid_blocks(g) + 2 * MID_BLOCKS)
+    ref = (None,) * 3
+    if eng.dtype == torch.float32:
+        es64 = dataclasses.replace(es, ssaf=es.ssaf.double(),
+                                   def_table=es.def_table.double())
+        ins64 = tuple(x.double() for x in ins)
+        o64 = energy_passes(K7_PLAIN, es64, ins64,
+                            energy_outputs(es64, ins64[3]))
+        ref = tuple(float(x) for x in o64[2:])
+        del ins64, o64
+    en = {k: (float(a), float(b), c) for k, a, b, c in zip(
+        ("H", "dE_lost", "dE_in"), ok[3:], op[3:], ref)}
+    r = SimpleNamespace(
+        same=bool(torch.equal(ok[0][inner], op[0][inner])
+                  and torch.equal(ok[1], op[1])),
+        grid_same=bool(torch.equal(ok[1], og[0])
+                       and torch.equal(ok[2][sums], og[1][sums])),
+        sums_rel=rel(ok[2][sums], og[1][sums])[0], en=en,
+        err=max([rel(ok[0][inner], op[0][inner])[1], rel(ok[1], op[1])[1]]
+                + [abs(a - b) for a, b, _ in en.values()]),
+        ms=None,
+        nbytes=(g.n_interior * (5 * ins[0].element_size()
+                                + eng.adj.element_size())
+                + 16 * grid_blocks(g)))
+    if timing_reps:
+        out, Lu, part = ok[:3]
+        calls = {
+            "K1e": lambda: stencil_energy_step(u0, u1, eng.adj, out, Lu,
+                                               part, g, sc, es),
+            "K1": lambda: stencil_step(u0, u1, eng.adj, out, g, sc),
+            "K7g": lambda: energy_grid_pass(es, u0, u1, *og)}
+        r.ms = {k: float("inf") for k in calls}
+        for _ in range(3):      # in turns, the best of three windows each
+            for k, fn in calls.items():
+                r.ms[k] = min(r.ms[k], time_ms(fn, timing_reps))
+        r.ms["plain"] = time_ms(lambda: stencil_energy_step_plain(
+            u0, u1, eng.adj, *op[:3], g, sc, es), 2)
+    del ins, ok, op, og
+    torch.cuda.empty_cache()
+    return r
+
+
+def k1e_print_require(where, r, fp32):
+    """Prints a k1e_check result and holds it to its bars: u^{n+1} and
+    L u^n bitwise equal to the plain version's, the scratch within 1e-12
+    of K7's grid pass's (bitwise equality printed), the energies as K7's
+    (in fp32 H, the one that reads K1e's sums)."""
+    t = ""
+    if r.ms is not None:
+        m = r.ms
+        t = (f"; K1e {m['K1e']:.4f} ms beside K1 {m['K1']:.4f} + K7's grid "
+             f"pass {m['K7g']:.4f} = {m['K1'] + m['K7g']:.4f} ms (in turns, "
+             f"best of 3 windows), plain {m['plain']:.4f} ms; bound "
+             f"{r.nbytes / HBM_BPS * 1e3:.4f} ms at the published rate, "
+             f"{r.nbytes / 1e9:.4f} GB")
+    print(f"[2] K1e {where}: u^(n+1) and L u^n bitwise equal to the plain "
+          f"version {r.same}; L u^n and sums bitwise equal to K7's grid "
+          f"pass {r.grid_same} (sums max rel err {r.sums_rel:.3e}); "
+          f"energies (K1e, plain, fp64 reference) {r.en}; max abs err "
+          f"{r.err:.3e}{t}", flush=True)
+    require(r.same, f"K1e {where}: u^(n+1) or L u^n differs from the plain "
+            f"version")
+    require(r.sums_rel <= 1e-12, f"K1e {where}: sums vs K7's grid pass "
+            f"{r.sums_rel}")
+    # in fp32 only H reads K1e's sums: dE_lost and dE_in are K7's boundary
+    # pass's alone, which k7_check holds
+    require_energies(f"K1e {where}", {"H": r.en["H"]} if fp32 else r.en,
+                     fp32)
+
+
+def grid_blocks(grid):
+    """Blocks of K1's launch, and of K7's grid pass: z-runs of
+    GRID_THREADS points of the interior's (x, y) rows."""
+    return (-(-(grid.Nz - 2) // GRID_THREADS) * (grid.Ny - 2)
+            * (grid.Nx - 2))
 
 
 def once_ms(fn):
@@ -575,22 +723,30 @@ def once_ms(fn):
 
 
 def reset_counts():
-    for ws in WRAPPERS:
+    for ws in WRAPPERS.values():
         for w in ws:
             w.launches = 0
 
 
 def counts():
-    return tuple(sum(w.launches for w in ws) for ws in WRAPPERS)
+    """The launches since reset_counts, a tuple in WRAPPERS' order."""
+    return tuple(sum(w.launches for w in ws) for ws in WRAPPERS.values())
 
 
-def launches(K1=0, K2=0, K3=0, K4=0, K5=0, K6=0, K7=0, K8=0):
-    return (K1, K2, K3, K4, K5, K6, K7, K8)
+def launches(**kw):
+    """A counts() tuple from {kernel: launches}, the rest zero."""
+    require(set(kw) <= set(WRAPPERS), f"no such kernels: {kw}")
+    return tuple(kw.get(k, 0) for k in WRAPPERS)
+
+
+def named(c):
+    """The kernels a counts() tuple launched: {kernel: launches}."""
+    return {k: n for k, n in zip(WRAPPERS, c) if n}
 
 
 def run_route(eng, want, reps=3):
-    """Best of `reps` runs of NT steps; each run's launch counts (K1 ..
-    K8) are reset just before it and must equal `want` just after."""
+    """Best of `reps` runs of NT steps; each run's launch counts are reset
+    just before it and must equal `want` just after."""
     runs = []
     for _ in range(reps):
         reset_counts()
@@ -598,8 +754,7 @@ def run_route(eng, want, reps=3):
         runs.append((eng.elapsed, counts()))
     require(all(c == want for _, c in runs),
             f"{type(eng).__name__} {eng.backend} TB={eng.TB}: launches "
-            f"per run "
-            f"{[c for _, c in runs]}, want {want}")
+            f"per run {[named(c) for _, c in runs]}, want {named(want)}")
     require(np.isfinite(u).all() and np.abs(u).max() > 0,
             "main path: u_out not finite or all zero")
     return u, min(t for t, _ in runs), want
@@ -697,7 +852,7 @@ def phase5(sim, gen, single, roof, configs=SHARDED, cards=False):
               f"{mv / mv1:.4f} of the single device's {mv1:.1f}; exchange "
               f"{x_ms:.4f} ms/step; peak device memory {peak:.2f} GB "
               f"(a card, the engine's own); "
-              f"launches (K1 .. K8) {c}; receivers vs single device "
+              f"launches {named(c)}; receivers vs single device "
               f"{err:.3e} of max |u_out| {scale:.3e}, bitwise equal "
               f"{np.array_equal(u, u_ref)}", flush=True)
         require(err <= 1e-5, f"{name} receivers disagree: {err}")
@@ -731,7 +886,8 @@ def phase5(sim, gen, single, roof, configs=SHARDED, cards=False):
 
 
 def counts_of(eng, D, g):
-    """The launches (K1 .. K8) one NT-step run of `eng` must make."""
+    """The launches (a counts() tuple) one NT-step run of `eng` must
+    make."""
     TB = eng.TB
     if D == 1 and TB is None:
         return launches(K1=NT, K2=NT)
@@ -748,43 +904,112 @@ def energy_rows_equal(a, b):
                for k in ("u_out", "H_tot", "E_lost", "E_in"))
 
 
+def two_pass_step_energy(eng, state, sig_n, out_row, en):
+    """The energy step as the route ran before K1e: K7's grid pass, the
+    step (K1 + K2 + sources), K7's boundary pass, from the kernels'
+    wrappers on the engine's state (a measurement path only)."""
+    es = eng.energy_scene
+    u0, u1, _, vh, gh = state
+    energy_grid_pass(es, u0, u1, en.Lu, en.part)
+    en.vh_prev.copy_(vh)
+    en.gh_prev.copy_(gh)
+    eng.step(state, sig_n, out_row)
+    H = torch.empty((), dtype=eng.dtype, device=eng.device)
+    return energy_boundary_pass(es, state[1], u0, state[3], en.vh_prev,
+                                en.gh_prev, sig_n, en.part, H, en.E_lost,
+                                en.E_in)
+
+
+def two_pass_engine(sim, dtype):
+    """An energy engine whose steps run `two_pass_step_energy`."""
+    e = engine(sim, dtype, energy_on=True)
+    e.step_energy = lambda *a: two_pass_step_energy(e, *a)
+    return e
+
+
+def energy_launches(nt):
+    """The launches of an nt-step energy run: K1e, K2 and K7's boundary
+    pass once a step (and K7's grid pass never); of a two-pass run."""
+    return (launches(K1e=nt, K2=nt, K7=nt),
+            launches(K7g=nt, K1=nt, K2=nt, K7=nt))
+
+
+def fused_vs_two_pass(name, e, e2, nt, reps):
+    """`reps` runs each of the energy route `e` and the two-pass route
+    `e2` over nt steps, in turns (e, e2, e, e2, ...), launches checked per
+    run; every run's receivers, energies and final fields must be bitwise
+    equal to the first's.  Returns (best seconds of e, of e2)."""
+    want = dict(zip(("fused", "two-pass"), energy_launches(nt)))
+    t = {"fused": [], "two-pass": []}
+    rows = ("u_out", "H_tot", "E_lost", "E_in")
+    first = None      # the first run's rows and final fields
+    for _ in range(reps):
+        for k, x in (("fused", e), ("two-pass", e2)):
+            reset_counts()
+            x.run(nt=nt, verbose=False)
+            c = counts()
+            require(c == want[k], f"{name} {k} energy route launches "
+                    f"{named(c)}, want {named(want[k])}")
+            t[k].append(x.elapsed)
+            if first is None:
+                first = ([getattr(x, a).copy() for a in rows],
+                         [f.clone() for f in x.state])
+                continue
+            require(all(np.array_equal(getattr(x, a), b)
+                        for a, b in zip(rows, first[0])) and all(
+                torch.equal(a, b) for a, b in zip(x.state, first[1])),
+                f"{name}: a run of the {k} route differs from the first "
+                f"fused run's bits")
+    return min(t["fused"]), min(t["two-pass"])
+
+
 def phase6(sim, eng, u_k, t_k, small):
     """Energy accounting, checkpoint/resume, the per-chunk hook and the
     modal filter on the card.  eng: phase 4's fp32 step engine on the
     headline scene, u_k and t_k its receivers and best time.  Returns the
-    K7 launches of the fp32 headline energy run and K8's row of the
-    kernels' record."""
+    launches of the fp32 headline energy run, its ms a step and the
+    two-pass route's, and K8's row of the kernels' record."""
     g = eng.data.grid
     npts = g.Nx * g.Ny * g.Nz
 
-    # (a) energy on the small fp64 scenes: K1 + K2 against the plain path
+    # (a) energy on the small fp64 scenes: K1e + K2 + K7 against the plain
+    # path and the two-pass route
     for n, s in small.items():
         ek = engine(s, np.float64, energy_on=True)
         reset_counts()
         uk = ek.run(verbose=False)
         c = counts()
-        require(c == launches(K1=ek.Nt, K2=ek.Nt, K7=2 * ek.Nt),
-                f"{n} energy route launches {c}, want {ek.Nt} K1 + K2 and "
-                f"{2 * ek.Nt} K7")
+        require(c == energy_launches(ek.Nt)[0],
+                f"{n} energy route launches {named(c)}, want {ek.Nt} K1e, "
+                f"K2 and K7")
         ep = engine(s, np.float64, energy_on=True, use_kernels=False)
         ep.run(verbose=False)
+        e2 = two_pass_engine(s, np.float64)
+        e2.run(verbose=False)
         bal = np.abs(ek.energy_balance()).max()
         errs = {a: float(np.abs(getattr(ek, a) - getattr(ep, a)).max()
                          / np.abs(getattr(ep, a)).max())
                 for a in ("H_tot", "E_lost", "E_in")}
         same = np.array_equal(uk, engine(s, np.float64).run(verbose=False))
+        same2 = energy_rows_equal(ek, e2) and all(
+            torch.equal(a, b) for a, b in zip(ek.state, e2.state))
         print(f"[6a] {n} fp64 energy: balance {bal:.3e}, E_lost[-1] "
               f"{ek.E_lost[-1]:.6e}, vs plain path {errs}, receivers "
-              f"bitwise equal to the energy-off run {same}", flush=True)
+              f"bitwise equal to the energy-off run {same}; receivers, "
+              f"energies and fields bitwise equal to the two-pass route "
+              f"{same2}", flush=True)
         require(bal < 1e-10 and ek.E_lost[-1] > 0,
                 f"{n}: energy balance {bal}, E_lost[-1] {ek.E_lost[-1]}")
         require(max(errs.values()) <= 1e-12, f"{n}: energies vs plain {errs}")
         require(same, f"{n}: the energy route changed the receivers")
+        require(same2, f"{n}: the energy route differs from the two-pass "
+                f"route")
 
     # (b) energy on the headline scene, fp32 then fp64, NT steps each
-    # against the step route; then fp64 over NT_LONG steps, past the walls
+    # against the step route and the two-pass route, in turns; then fp64
+    # over NT_LONG steps, past the walls
     sim_long = headline_scene(NT_LONG)
-    k7_launches = None
+    rec = None
     for dt in (np.float32, np.float64):
         name = np.dtype(dt).name
         if dt == np.float32:
@@ -803,23 +1028,31 @@ def phase6(sim, eng, u_k, t_k, small):
         u = e.run(nt=NT, verbose=False)
         c = counts()
         peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        e2 = two_pass_engine(s, dt)
+        t1, t2 = fused_vs_two_pass(f"headline {name}", e, e2, NT, 3)
         bal = np.abs(e.energy_balance()).max()
         same = np.array_equal(u, u_off)
-        print(f"[6b] headline {name} energy route: "
-              f"{npts * NT / e.elapsed / 1e6:.1f} MVPS ({e.elapsed:.4f} s, "
-              f"{e.elapsed / NT * 1e3:.4f} ms a step) against the step "
-              f"route's {npts * NT / t_off / 1e6:.1f} ({t_off:.4f} s); "
-              f"launches (K1 .. K8) {c}; balance {bal:.3e}; E_lost[-1] "
-              f"{e.E_lost[-1]:.6e}; receivers bitwise equal to the step "
-              f"route {same}; peak device memory {peak:.2f} GB (the "
-              f"engine's own)", flush=True)
-        require(c == launches(K1=NT, K2=NT, K7=2 * NT),
-                f"{name} energy launches {c}")
+        print(f"[6b] headline {name} energy route (K1e + K2 + K7): "
+              f"{npts * NT / t1 / 1e6:.1f} MVPS ({t1:.4f} s, "
+              f"{t1 / NT * 1e3:.4f} ms a step, best of 3) against the "
+              f"two-pass route's (K7g + K1 + K2 + K7) "
+              f"{npts * NT / t2 / 1e6:.1f} ({t2 / NT * 1e3:.4f} ms a step, "
+              f"best of 3, in turns) and the step route's "
+              f"{npts * NT / t_off / 1e6:.1f} ({t_off / NT * 1e3:.4f} ms); "
+              f"launches {named(c)}; every run of both routes bitwise "
+              f"equal (receivers, energies, final fields); balance "
+              f"{bal:.3e}; E_lost[-1] {e.E_lost[-1]:.6e}; receivers bitwise "
+              f"equal to the step route {same}; peak device memory "
+              f"{peak:.2f} GB (the engine's own)", flush=True)
+        require(c == energy_launches(NT)[0],
+                f"{name} energy launches {named(c)}")
         require(np.isfinite(e.H_tot).all() and e.E_in[-1] > 0,
                 f"{name}: energies not finite or no input energy")
         require(same, f"headline {name}: energy route receivers differ")
+        del e2
+        torch.cuda.empty_cache()
         if dt == np.float32:
-            k7_launches = c[6]
+            rec = (c, t1 / NT * 1e3, t2 / NT * 1e3)
         else:
             require(bal < 1e-9, f"headline fp64 energy balance {bal}")
             reset_counts()
@@ -830,12 +1063,12 @@ def phase6(sim, eng, u_k, t_k, small):
             grow = El[-1] - El[N_WALLS - 1]
             print(f"[6b] headline float64 energy route, {NT_LONG} steps: "
                   f"{npts * NT_LONG / e.elapsed / 1e6:.1f} MVPS "
-                  f"({e.elapsed:.4f} s); launches (K1 .. K8) {c}; balance "
+                  f"({e.elapsed:.4f} s); launches {named(c)}; balance "
                   f"{bal:.3e}; E_lost at step {N_WALLS} {El[N_WALLS - 1]:.6e}"
                   f", at {NT_LONG} {El[-1]:.6e} (grew {grow:.6e}); E_in[-1] "
                   f"{e.E_in[-1]:.6e}", flush=True)
-            require(c == launches(K1=NT_LONG, K2=NT_LONG, K7=2 * NT_LONG),
-                    f"fp64 {NT_LONG}-step energy launches {c}")
+            require(c == energy_launches(NT_LONG)[0],
+                    f"fp64 {NT_LONG}-step energy launches {named(c)}")
             require(bal < 1e-9, f"headline fp64 {NT_LONG}-step energy "
                     f"balance {bal}")
             require(grow > El[N_WALLS - 1],
@@ -968,7 +1201,7 @@ def phase6(sim, eng, u_k, t_k, small):
     nbytes = 8 * (2 * nt + 3 * nch * nt + nch * (nt + 1))
     print(f"[6e] modal filter 2 x {MODAL_TIMED} (1 s at 48 kHz): "
           f"apply_modal_filter {t_48k:.3f} s end to end (host clock), "
-          f"launches (K1 .. K8) {c}; q0 {q0}: {ns} loop modes, {nc} "
+          f"launches {named(c)}; q0 {q0}: {ns} loop modes, {nc} "
           f"contracted; K8 alone {k8_ms:.4f} ms (CUDA events); bounds at "
           f"{FP64_OPS:.0e} fp64 op/s: the loop's {loop_ops:.4e} operations "
           f"{b_loop:.4f} ms ({b_loop / k8_ms:.1%} of K8), the split's "
@@ -998,7 +1231,7 @@ def phase6(sim, eng, u_k, t_k, small):
           + ", ".join(f"q0 {q} {v:.4f}" for q, v in sweep.items())
           + f" (q0 {nt}: every mode on the loop)", flush=True)
     del ts, out, out_p, Ps
-    return k7_launches, (c[7], err_abs, k8_ms, plain_ms, nbytes, nops, None)
+    return rec, (c[7], err_abs, k8_ms, plain_ms, nbytes, nops, None)
 
 
 def hall_sim(dims, src, rxyz, mats, fcc, backend, nt, insig, diff):
@@ -1148,27 +1381,28 @@ def phase7(gen, ref_mvps, grid_shape, hall=HALL):
         print(f"[7] small hall {name} fp64 ({s.vox.Nx} x {s.vox.Ny} x "
               f"{s.vox.Nz}, {o.Nt} steps, Nbl {o.Nbl}) on the card vs "
               f"NumpyEngine: {errs}; balance {bal:.3e}, E_lost[-1] "
-              f"{e.E_lost[-1]:.6e}; launches (K1 .. K8) energy {c}, tb {c_tb}",
-              flush=True)
+              f"{e.E_lost[-1]:.6e}; launches energy {named(c)}, tb "
+              f"{named(c_tb)}", flush=True)
         require(max(errs.values()) <= 1e-12,
                 f"small hall {name} vs the oracle: {errs}")
         require(bal < 1e-10 and e.E_lost[-1] > 0,
                 f"small hall {name}: balance {bal}, E_lost {e.E_lost[-1]}")
-        require(c == launches(K1=o.Nt, K2=o.Nt, K7=2 * o.Nt)
+        require(c == energy_launches(o.Nt)[0]
                 and c_tb == launches(K1=o.Nt % 3, K2=o.Nt % 3,
                                      K3=o.Nt // 3),
-            f"small hall {name}: launches {c}, {c_tb}")
+            f"small hall {name}: launches {named(c)}, {named(c_tb)}")
 
 
 def phase8(roof):
     """setup_1e9 at full size in a subprocess (see the module docstring);
     each kernel's bound at the read+write roof of phase 1 is printed;
-    returns {kernel: (its launches over the three routes, its ms a call in
-    the check)} for K1, K2, K3 and K5."""
+    returns {kernel: (its launches over the routes, its ms a call in the
+    check, or None)} for K1, K2, K3, K5, K1e and K7."""
     t0 = time.perf_counter()
     p = subprocess.run(
         [sys.executable, "-m", "pffdtd_tpu_torch.examples.setup_1e9",
-         "--check"], cwd=Path(__file__).resolve().parent,
+         "--check", "--routes", ",".join(ROUTES_1E9)],
+        cwd=Path(__file__).resolve().parent,
         capture_output=True, text=True, timeout=TIMEOUT_1E9)
     secs = time.perf_counter() - t0
     for line in p.stdout.splitlines():
@@ -1182,20 +1416,29 @@ def phase8(roof):
     nt = rec["nt"]
     require(nt == rec["Nt"] > 608, f"setup_1e9 ran {nt} of {rec['Nt']} "
             f"steps: the direct sound needs about 608")
-    zero = dict.fromkeys(("K1", "K2", "K3", "K5", "K6"), 0)
+    zero = dict.fromkeys(("K1", "K2", "K3", "K5", "K6", "K1e", "K7", "K7g"),
+                         0)
     want = {"step": dict(zero, K1=nt, K2=nt),
             "tb": dict(zero, K1=nt % 3, K2=nt % 3, K3=nt // 3),
-            "x4": dict(zero, K2=4 * nt, K5=4 * nt)}
+            "x4": dict(zero, K2=4 * nt, K5=4 * nt),
+            "energy": dict(zero, K1e=nt, K2=nt, K7=nt)}
     for route, r in rec["routes"].items():
         require(r["launches"] == want[route], f"setup_1e9 {route} launches "
                 f"{r['launches']}, want {want[route]}")
         require(r["max_abs_u"] > 0, f"setup_1e9 {route}: u_out all zero")
-    require(list(rec["routes"]) == ["step", "tb", "x4"],
+    require(list(rec["routes"]) == list(ROUTES_1E9),
             f"setup_1e9 routes {list(rec['routes'])}")
     errs = rec["receivers_vs_first"]
     require(max(errs.values()) <= 1e-5, f"setup_1e9 receivers: {errs}")
-    print(f"[8] setup_1e9: {secs:.1f} s in all; receivers vs step {errs}",
-          flush=True)
+    en = rec["routes"]["energy"]
+    require(en["balance"] < 1e-9, f"setup_1e9 fp64 energy balance "
+            f"{en['balance']}")
+    print(f"[8] setup_1e9: {secs:.1f} s in all, of which the fp64 energy "
+          f"route {en['route_s']:.1f} s ({en['mvps']:.1f} MVPS, "
+          f"{en['ms_step']:.4f} ms a step, peak {en['peak_gb']:.2f} GB "
+          f"against {en['reckoned_gb']:.2f} reckoned, balance "
+          f"{en['balance']:.3e}); receivers vs step {errs}, the fp64 energy "
+          f"route's {rec['energy_fp64_vs_first']:.3e}", flush=True)
     # a check that would not fit the card's free memory is skipped and
     # printed as such by the subprocess; one that ran agreed, or it failed
     checks = {k: c for r in rec["routes"].values()
@@ -1207,9 +1450,10 @@ def phase8(roof):
                   f" ms; bound {b:.4f} ms at the roof ({c['bytes_gb']:.4f} "
                   f"GB), {100 * b / c['ms']:.1f}% of it", flush=True)
     names = {"K1": "K1 stencil_step", "K2": "K2 boundary_update",
-             "K3": "K3 tb_sweep", "K5": "K5 stencil_step_shard"}
+             "K3": "K3 tb_sweep", "K5": "K5 stencil_step_shard",
+             "K1e": "K1e stencil_energy_step", "K7": "K7 energy_terms"}
     return {name: (sum(r["launches"][k] for r in rec["routes"].values()),
-                   checks[k].get("ms")) for k, name in names.items()}
+                   checks.get(k, {}).get("ms")) for k, name in names.items()}
 
 
 def main():
@@ -1296,6 +1540,8 @@ def main():
         require(r <= 1e-6, f"{k} fp32 disagrees with its plain version: {r}")
     k7_chk = k7_check(eng, gen, timing_reps=20)
     k7_print_require("fp32 main shapes", k7_chk, fp32=True)
+    k1e_chk = k1e_check(eng, gen, timing_reps=20)
+    k1e_print_require("fp32 main shapes", k1e_chk, fp32=True)
     # K3 at every TB on the headline scene: checked against its plain
     # version and timed, TB = 2 and 3 (the routes', on the pair and tb
     # engines' scenes) over 20 sweeps, the deeper ones over 3
@@ -1327,6 +1573,8 @@ def main():
             require(r <= 1e-12, f"{k} fp64 {n} disagrees: {r}")
         k7_print_require(f"fp64 {n}", k7_check(engine(s, np.float64), gen),
                          fp32=False)
+        k1e_print_require(f"fp64 {n}", k1e_check(engine(s, np.float64), gen),
+                          fp32=False)
         for TB in (2, 3, 8):
             r = tb_check(engine(s, np.float64, backend="tb", tb=TB), gen)[0]
             print(f"[2] K3 TB={TB} fp64 {n}: max rel err {r:.3e}",
@@ -1390,8 +1638,8 @@ def main():
     ni = g.n_interior
     k1_ms, k2_ms = main_chk["K1"][2], main_chk["K2"][2]
     k1_bytes = ni * (3 * isz + eng.adj.element_size())
-    print(f"[4] launches (K1 .. K8) per {NT} steps: tb TB=3 {c_tb}, "
-          f"pair {c_pr}, step {c_k}", flush=True)
+    print(f"[4] launches per {NT} steps: tb TB=3 {named(c_tb)}, "
+          f"pair {named(c_pr)}, step {named(c_k)}", flush=True)
     for name, u, t in (("tb TB=3", u_tb, t_tb), ("pair", u_pr, t_pr),
                        ("step", u_k, t_k), ("plain", u_p, min(t_p))):
         err = np.abs(u - u_p).max() / scale
@@ -1426,10 +1674,21 @@ def main():
     del eng_tb, eng_pair
     torch.cuda.empty_cache()
     p5 = phase5(sim, gen, single, roof)
-    k7_launches, k8_row = phase6(sim, eng, u_k, t_k, small)
+    (c_e, e_ms, e2_ms), k8_row = phase6(sim, eng, u_k, t_k, small)
+    k2_bytes = eng.data.Nbl * (4 * MMb * isz + 8 + isz + 4 + 3 * isz)
+    # the whole energy step, each input read and each output written once:
+    # u^{n-1}, u^n, adj and L u^{n-1} in, u^{n+1} and L u^n out, an
+    # interior point; K2's nodes (branch states in and out); the sums
+    e_bytes = k1e_chk.nbytes + k2_bytes
+    print(f"[6b] the fp32 energy step moves at least {e_bytes / 1e9:.4f} GB:"
+          f" {e_bytes / roof / 1e6:.4f} ms at the roof "
+          f"({e_bytes / HBM_BPS * 1e3:.4f} at the published rate); the "
+          f"route {e_ms:.4f} ms a step "
+          f"({100 * e_bytes / roof / 1e6 / e_ms:.1f}% of it), the two-pass "
+          f"route {e2_ms:.4f} ({100 * e_bytes / roof / 1e6 / e2_ms:.1f}%)",
+          flush=True)
     phase7(gen, npts * NT / t_k / 1e6, g.shape)
 
-    k2_bytes = eng.data.Nbl * (4 * MMb * isz + 8 + isz + 4 + 3 * isz)
     k4_bytes = 2 * k4["size_mb"] * (1 << 20)
     rows = {
         "K1 stencil_step": (c_k[0], main_chk["K1"][1], k1_ms,
@@ -1443,12 +1702,15 @@ def main():
         "K4 stream": (k4_launches, s_err, k4["ms"], k4["torch_ms"], k4_bytes,
                       0.0, k4["torch_ms"]),
         **p5,
-        # K7: one step's grid and boundary passes
-        "K7 energy_terms": (k7_launches, k7_chk[1], sum(k7_chk[3]),
-                            sum(k7_chk[4]), k7_chk[5],
-                            35.0 * ni + 3.0 * shell_points(g)
+        # K7 on the energy route: its boundary pass (K1e does the grid's)
+        "K7 energy_terms": (c_e[6], k7_chk[1], k7_chk[3][1], k7_chk[4][1],
+                            k7_chk[5][1], 3.0 * shell_points(g)
                             + 10.0 * MMb * eng.data.Nbl, None),
         "K8 modal_recurrence": k8_row,
+        # K1's step with K7's grid pass: 29 operations a point, 9 more
+        "K1e stencil_energy_step": (c_e[8], k1e_chk.err, k1e_chk.ms["K1e"],
+                                    k1e_chk.ms["plain"], k1e_chk.nbytes,
+                                    38.0 * ni, None),
     }
     # phase 8 runs in its own process: free this one's fields and cache
     del eng

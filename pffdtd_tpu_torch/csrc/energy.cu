@@ -25,7 +25,11 @@
 //     then y, then x, so the rows in flight span two or three x planes and
 //     the neighbour re-reads stay in L2.  Each block writes the fp64 sums of
 //     the interior term and of the ABC correction; a middle stage of 1024
-//     blocks sums them in fixed contiguous ranges.
+//     blocks sums them in fixed contiguous ranges (`pf_energy_mid`).
+//     The engine runs (a) inside K1's launch instead: K1's energy mode
+//     (stencil.cu) writes the same partial sums, to the bit, from the
+//     values it holds for the step, and then this middle stage runs.  This
+//     pass stays as the two-pass yardstick it is timed and checked against.
 // (b) the boundary pass, after the step: the ABC loss over the shell of ABC
 //     layer points, the lossy dissipation and H's lossy term over the Nbl
 //     nodes (branch states before the step from the engine's scratch), and
@@ -55,11 +59,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "energy_sums.cuh"  // kGridThreads, kMidBlocks, block_sums, ...
+
 namespace {
 
-constexpr int kGridThreads = 128;  // a z-run of one (x, y) row, as K1's
 constexpr int kThreads = 256;      // the middle stage and the boundary pass
-constexpr int kMidBlocks = 1024;
 constexpr int kFinalThreads = 1024;
 constexpr int MMb = 12;
 
@@ -75,35 +79,6 @@ __device__ __forceinline__ int3 leg(int k) {
                           {0, 1, -1}, {0, -1, 1},  {1, 0, -1}, {-1, 0, 1}};
     return make_int3(v[k][0], v[k][1], v[k][2]);
   }
-}
-
-// Sums v[0..NS) over the block in a fixed order (warp tree, then the warps
-// in order); thread 0 writes the sums to out[0..NS).  Every thread of the
-// block must call it.
-template <int NS, int THREADS>
-__device__ void block_sums(double (&v)[NS], double* out) {
-  __shared__ double sh[NS][THREADS / 32];
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int q = 0; q < NS; ++q) {
-    double x = v[q];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
-    if (lane == 0) sh[q][w] = x;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int q = 0; q < NS; ++q) {
-      double s = sh[q][0];
-      for (int i = 1; i < THREADS / 32; ++i) s += sh[q][i];
-      out[q] = s;
-    }
-  }
-}
-
-__device__ __forceinline__ double abc_h_weight(int Q) {  // 1 - 2^-Q
-  return (double)(1.0f - __int_as_float((127 - Q) << 23));  // exact
 }
 
 __device__ __forceinline__ double abc_loss_weight(int Q) {  // 2^-Q Q
@@ -333,9 +308,7 @@ int launch_grid(const void* u0, const void* u1, const void* adj, void* Lu,
       folded ? 1 : 0, T(lfac), T(inv_l2));
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  energy_mid_kernel<<<kMidBlocks, kThreads, 0, stream>>>(pa, blocks,
-                                                         pa + 2 * blocks);
-  return (int)cudaGetLastError();
+  return pf_energy_mid(pa, blocks, stream);
 }
 
 template <typename T>
@@ -378,6 +351,13 @@ int launch_boundary(const void* unew, const void* u0, const void* vh,
 }
 
 }  // namespace
+
+extern "C" int pf_energy_mid(double* part, long long blocks,
+                             cudaStream_t stream) {
+  energy_mid_kernel<<<kMidBlocks, kThreads, 0, stream>>>(part, blocks,
+                                                         part + 2 * blocks);
+  return (int)cudaGetLastError();
+}
 
 // Pass (a).  dtype: 0 = float32, 1 = float64; nn: 6 (uint8 adjacency) or
 // 12 (uint16).  Returns cudaGetLastError().

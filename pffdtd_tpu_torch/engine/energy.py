@@ -37,9 +37,9 @@ for the device.
 
 These functions are the plain building blocks of K7
 (`kernels.energy.energy_grid_pass_plain`, `energy_boundary_pass_plain`);
-on the card the engine runs K7 (`csrc/energy.cu`), which computes the same
-terms in one pass over the grid and one over the boundary, with no grid
-but L u.
+on the card the engine computes the grid terms and L u in K1's launch (its
+energy mode, `kernels.stencil.stencil_energy_step`) and the rest in K7's
+pass over the boundary (`csrc/energy.cu`), with no grid but L u.
 """
 
 from __future__ import annotations

@@ -38,9 +38,11 @@ comparison path).  The engine runs on the card unless `device="cpu"` is
 passed, and never falls back to the CPU.
 
 `energy_on=True` (the step route only, as the JAX engine asserts,
-jax_engine.py:448, 554) evaluates the energy functionals around every step
-with K7 (`kernels.energy`: a grid pass before the step, a boundary pass
-after it; on the CPU their plain versions, composed from `engine.energy`):
+jax_engine.py:448, 554) evaluates the energy functionals with every step:
+K1 runs in its energy mode (`kernels.stencil.stencil_energy_step`, K1e),
+which also writes L u^n and H[n]'s grid sums in the step's launch, and
+K7's boundary pass (`kernels.energy.energy_boundary_pass`) follows the
+step; on the CPU their plain versions, composed from `engine.energy`.
 `run()` then fills `H_tot`, `E_lost` and `E_in`, and `energy_balance()`
 gives the balance the JAX engine's does.
 `run()` also takes JAX's per-chunk hook and checkpoint/resume
@@ -68,10 +70,11 @@ from pffdtd_tpu_torch.kernels.boundary import boundary_update, \
     boundary_update_plain
 from pffdtd_tpu_torch.kernels.energy import (energy_boundary_pass,
                                              energy_boundary_pass_plain,
-                                             energy_grid_pass,
-                                             energy_grid_pass_plain,
                                              scratch_size)
-from pffdtd_tpu_torch.kernels.stencil import stencil_step, stencil_step_plain
+from pffdtd_tpu_torch.kernels.stencil import (stencil_energy_step,
+                                              stencil_energy_step_plain,
+                                              stencil_step,
+                                              stencil_step_plain)
 from pffdtd_tpu_torch.kernels.tb import TBScene, tb_sweep, tb_sweep_plain
 
 _TORCH_DTYPE = {np.dtype(np.float32): torch.float32,
@@ -166,16 +169,19 @@ class TorchEngine:
         return [self._zeros(*g), self._zeros(*g), self._zeros(*g),
                 self._zeros(MMb, nbl), self._zeros(MMb, nbl)]
 
-    def step(self, state, sig_n, out_row=None):
+    def step(self, state, sig_n, out_row=None, k1=None):
         """Advance `state` by one step in place (buffers rotate).
 
         sig_n: (Ns,) source samples already divided by infac, on device;
-        out_row: optional (Nr,) view that receives u1f[out_ixyz]."""
+        out_row: optional (Nr,) view that receives u1f[out_ixyz]; k1: the
+        stencil call, k1(u0, u1, adj, out, grid, sc) (default K1, or its
+        plain version with use_kernels=False)."""
         u0, u1, u2, vh, gh = state
         d = self.data
         if out_row is not None:
             torch.index_select(u1.view(-1), 0, self.out_ixyz_f, out=out_row)
-        k1 = stencil_step if self.use_kernels else stencil_step_plain
+        if k1 is None:
+            k1 = stencil_step if self.use_kernels else stencil_step_plain
         k2 = boundary_update if self.use_kernels else boundary_update_plain
         k1(u0, u1, self.adj, u2, d.grid, d.sc)
         if d.Nbl:
@@ -205,25 +211,27 @@ class TorchEngine:
         return state
 
     def step_energy(self, state, sig_n, out_row, en):
-        """`step` with the energy terms around it; returns H[n] (0-d).
+        """`step` with the energy terms; returns H[n] (0-d).
 
         en: the run's energy carry (`_energy_carry`): Lu = L u^{n-1} on
         entry and L u^n on return, the accumulators E_lost and E_in (0-d,
         updated in place), vh_prev and gh_prev, scratch for the branch
         states before the step (K2 updates them in place), and part, the
-        passes' fp64 scratch.  K7's grid pass runs before the step, its
-        boundary pass after (the plain pair with use_kernels=False)."""
+        fp64 scratch of the sums.  K1e takes K1's place in the step (K7's
+        grid pass in the same launch), K7's boundary pass follows it (their
+        plain versions with use_kernels=False)."""
         es = self.energy_scene
-        u0, u1, _, vh, gh = state
+        u0, _, _, vh, gh = state
         if self.use_kernels:
-            grid_pass, boundary_pass = energy_grid_pass, energy_boundary_pass
+            k1e, boundary_pass = stencil_energy_step, energy_boundary_pass
         else:
-            grid_pass = energy_grid_pass_plain
+            k1e = stencil_energy_step_plain
             boundary_pass = energy_boundary_pass_plain
-        grid_pass(es, u0, u1, en.Lu, en.part)
         en.vh_prev.copy_(vh)
         en.gh_prev.copy_(gh)
-        self.step(state, sig_n, out_row)
+        self.step(state, sig_n, out_row,
+                  k1=lambda u0, u1, adj, out, grid, sc: k1e(
+                      u0, u1, adj, out, en.Lu, en.part, grid, sc, es))
         # the step rotated the buffers: u0 = u^{n-1} is untouched, state[1]
         # is u^{n+1} and state[3] the branch states after the step
         H = torch.empty((), dtype=self.dtype, device=self.device)

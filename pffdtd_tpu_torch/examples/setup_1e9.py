@@ -10,7 +10,11 @@ next is built:
 - step: `TorchEngine`, K1 + K2 a step;
 - tb: `TorchEngine(backend="tb", tb=3)`, a K3 sweep every 3 steps;
 - x4: `ShardedTorchEngine`, four x-slabs after `scene.pad_x_interior`
-  (K5 + K2 a step), on the one card or on `--devices`.
+  (K5 + K2 a step), on the one card or on `--devices`;
+- energy (asked for by name, after the others, on their setup):
+  `TorchEngine(energy_on=True)` in fp64 whatever the other routes' dtype,
+  K1e + K2 + K7's boundary pass a step, one run; the fp64 energy balance
+  must stay below 1e-9.
 The original voxelizes, then runs 2 steps on an 8-device CPU mesh.  Its
 duration of 1 ms is 24 steps, too few for the direct sound to reach the
 receiver 8.77 m from the source (c Ts = h / sqrt(3) = 0.0144 m a step:
@@ -20,13 +24,17 @@ Printed per route: the host seconds of the engine build, MVPS and ms a
 step over the time loop (host clock, ending in a synchronize; the best of
 two runs, each run's seconds beside it), the peak device memory and the
 kernel launches; then the receivers of each route against the first's,
-which must agree within 1e-5 of max |u_out|, and u_out must be finite.  `--check` also holds K1 and K2 (step), K3 (tb)
-and K5 (x4) against their plain versions, one call each from a seeded
-random state, where the plain version's temporaries fit the device's free
-memory.  The last line is a JSON record of it all.
+which must agree within 1e-5 of max |u_out| (the energy route, in fp64,
+bitwise when the others are fp64 too, else its difference is printed), and
+u_out must be finite; for the energy route its balance and the device
+memory its arrays take by count.  `--check` also holds K1 and K2 (step),
+K3 (tb) and K5 (x4) against their plain versions, one call each from a
+seeded random state, where the plain version's temporaries fit the
+device's free memory (the energy route's plain passes never do at full
+size, and are not run).  The last line is a JSON record of it all.
 
     python -m pffdtd_tpu_torch.examples.setup_1e9 [--quick] [--h H]
-        [--steps N] [--routes step,tb,x4] [--f64] [--check]
+        [--steps N] [--routes step,tb,x4[,energy]] [--f64] [--check]
         [--device cuda|cpu] [--devices cuda:0,cuda:1,...]
 
 `--quick` takes h = 0.055 (592 x 464 x 373 = 0.102 Gvox); `--h` sets h.
@@ -51,7 +59,10 @@ from pffdtd_tpu_torch.io.simdata import MMb
 from pffdtd_tpu_torch.kernels import _build
 from pffdtd_tpu_torch.kernels.boundary import boundary_update, \
     boundary_update_plain
-from pffdtd_tpu_torch.kernels.stencil import (stencil_step,
+from pffdtd_tpu_torch.kernels.energy import (energy_boundary_pass,
+                                             energy_grid_pass, scratch_size)
+from pffdtd_tpu_torch.kernels.stencil import (stencil_energy_step,
+                                              stencil_step,
                                               stencil_step_plain,
                                               stencil_step_shard,
                                               stencil_step_shard_plain)
@@ -71,14 +82,19 @@ RXYZ = (20.0, 14.0, 11.0)
 DEF = ((2.0, 5.0, 30.0),)
 H, H_QUICK = 0.025, 0.055
 DURATION = 0.03
-ROUTES = ("step", "tb", "x4")
+ROUTES = ("step", "tb", "x4", "energy")
+DEFAULT_ROUTES = ("step", "tb", "x4")
 SLABS = 4
 REPS = 2            # runs a route, the best timed: the first may meet a
                     # card clocked down through the host setup
 TOL = 1e-5          # receivers between routes, of max |u_out|
+BALANCE = 1e-9      # the fp64 energy balance, the JAX package's bar for a
+                    # real room
 SEED = 0
 KERNELS = {"K1": stencil_step, "K2": boundary_update, "K3": tb_sweep,
-           "K5": stencil_step_shard, "K6": tb_sweep_shard}
+           "K5": stencil_step_shard, "K6": tb_sweep_shard,
+           "K1e": stencil_energy_step, "K7": energy_boundary_pass,
+           "K7g": energy_grid_pass}
 # fp32 bars of one call against the plain version (chip_smoke.py phase 2)
 CHECK_TOL = {"K1": 1e-6, "K2": 1e-6, "K3": 1e-5, "K5": 1e-6}
 # device memory a check takes, in grids (slabs for K5) of the working
@@ -199,28 +215,45 @@ def launches():
 
 def build_engine(sim, route, dtype, devices):
     """The engine of `route` on `devices`: TorchEngine on the one device
-    for step and tb, the x-slab engine over the SLABS devices for x4."""
+    for step, tb and energy (fp64 whatever `dtype`), the x-slab engine
+    over the SLABS devices for x4."""
     kw = dict(consts=sim.consts, vox=sim.vox, comms=sim.comms, mats=sim.mats,
               dtype=dtype)
     if route == "x4":
         return make_sharded_engine(**kw, devices=devices, backend="step")
     if route not in ROUTES:
         raise ValueError(f"route {route!r}: one of {ROUTES}")
+    if route == "energy":
+        kw.update(dtype=np.float64, energy_on=True)
     return TorchEngine(**kw, device=devices[0],
                        **({"backend": "tb", "tb": 3} if route == "tb" else {}))
+
+
+def energy_gb(eng):
+    """GB of device memory the energy route's arrays take by count: four
+    fields (u^{n-1}, u^n, u^{n+1}, L u), the adjacency, four branch-state
+    arrays (vh, gh and their copies before the step) and K7's scratch."""
+    d = eng.data
+    g, isz = d.grid, d.dtype.itemsize
+    npts = g.Nx * g.Ny * g.Nz
+    return (4 * npts * isz + npts * eng.adj.element_size()
+            + 4 * MMb * d.Nbl * isz + 8 * scratch_size(g, d.Nbl)) / 1e9
 
 
 def run_route(sim, route, nt, dtype=np.float32, device="cuda", devices=None,
               check=False):
     """Build the route's engine (x4 over `devices`, default SLABS x
-    `device`), run nt steps from zero REPS times (the launches counted
-    over the last run alone), optionally check its kernels
-    (`check_kernels`), free it.
+    `device`), run nt steps from zero REPS times (the energy route once;
+    the launches counted over the last run alone), optionally check its
+    kernels (`check_kernels`; not on the energy route), free it.
 
     Returns (u_out, record): the grid, Nbl, the build's seconds, the best
     and every run's loop seconds, MVPS and ms a step of the best, the
-    peak device memory in GB (None on the CPU), the launches, max |u_out|
-    and the checks."""
+    peak device memory in GB (None on the CPU), the launches, max |u_out|,
+    the checks, the seconds of it all (host clock) and, on the energy
+    route, the balance, E_lost[-1] and the reckoned memory (`energy_gb`);
+    raises where the balance is not below BALANCE."""
+    t_all = time.perf_counter()
     devs = (devices or [device] * SLABS) if route == "x4" else [device]
     cards = sorted({d for d in map(torch.device, devs) if d.type == "cuda"},
                    key=str)
@@ -232,7 +265,7 @@ def run_route(sim, route, nt, dtype=np.float32, device="cuda", devices=None,
         torch.cuda.synchronize(d)
     t_build = time.perf_counter() - t0
     runs = []
-    for _ in range(REPS):
+    for _ in range(1 if route == "energy" else REPS):
         _drop_fields(eng)
         reset_launches()
         u = eng.run(nt=nt, verbose=False)
@@ -247,12 +280,20 @@ def run_route(sim, route, nt, dtype=np.float32, device="cuda", devices=None,
            "mvps": g.Nx * g.Ny * g.Nz * nt / best / 1e6,
            "ms_step": 1e3 * best / nt, "peak_gb": peak,
            "launches": count, "max_abs_u": float(np.abs(u).max())}
+    if route == "energy":
+        rec.update(balance=float(np.abs(eng.energy_balance()).max()),
+                   E_lost=float(eng.E_lost[-1]), reckoned_gb=energy_gb(eng))
     if check:
-        rec["checks"] = check_kernels(eng, route)
+        rec["checks"] = {} if route == "energy" else check_kernels(eng,
+                                                                   route)
     del eng
     gc.collect()
     if cards:
         torch.cuda.empty_cache()
+    rec["route_s"] = time.perf_counter() - t_all
+    if route == "energy" and not rec["balance"] < BALANCE:
+        raise AssertionError(f"energy route: balance {rec['balance']}, "
+                             f"not below {BALANCE}")
     return u, rec
 
 
@@ -449,7 +490,7 @@ def main(argv=None):
     ap.add_argument("--h", type=float, default=None, help="grid spacing (m)")
     ap.add_argument("--steps", type=int, default=None,
                     help=f"steps a route (default all of {DURATION} s)")
-    ap.add_argument("--routes", default=",".join(ROUTES),
+    ap.add_argument("--routes", default=",".join(DEFAULT_ROUTES),
                     help=f"comma-separated, of {', '.join(ROUTES)}")
     ap.add_argument("--f64", action="store_true", help="float64 fields")
     ap.add_argument("--check", action="store_true",
@@ -519,13 +560,34 @@ def main(argv=None):
         for k, c in r.get("checks", {}).items():
             print(f"[setup_1e9] {route} {k} vs its plain version: {c}",
                   flush=True)
-    rec["receivers_vs_first"] = compare_routes(outs)
+        if route == "energy":
+            print(f"[setup_1e9] energy (fp64): balance {r['balance']:.3e} "
+                  f"(bar {BALANCE:.0e}), E_lost[-1] {r['E_lost']:.6e}; "
+                  f"peak device memory {peak} against {r['reckoned_gb']:.2f}"
+                  f" GB reckoned from its arrays; {r['route_s']:.1f} s in "
+                  f"all (engine build, run, free)"
+                  + ("; no plain check: the plain passes' temporaries "
+                     "would not fit the card at this size" if args.check
+                     else ""), flush=True)
+    # the energy route runs in fp64: held to the others only when they do
+    same = {r: u for r, u in outs.items() if r != "energy" or args.f64}
+    rec["receivers_vs_first"] = compare_routes(same) if same else {}
+    if len(same) < len(outs):
+        u, ref = outs["energy"], next(iter(same.values()), None)
+        if not np.isfinite(u).all():
+            raise FloatingPointError("energy: u_out is not finite")
+        if ref is not None:
+            rec["energy_fp64_vs_first"] = float(
+                np.abs(u - ref).max() / np.abs(ref).max())
     rec["bitwise_equal"] = {r: bool(np.array_equal(u, outs[routes[0]]))
                             for r, u in outs.items()}
     rec["rss_gb"] = peak_rss_gb()
     print(f"[setup_1e9] receivers vs {routes[0]}: "
           f"{rec['receivers_vs_first']} of max |u_out|, bitwise equal "
-          f"{rec['bitwise_equal']}", flush=True)
+          f"{rec['bitwise_equal']}"
+          + (f"; the fp64 energy route vs {routes[0]} "
+             f"{rec['energy_fp64_vs_first']:.3e}"
+             if "energy_fp64_vs_first" in rec else ""), flush=True)
     print(json.dumps({"setup_1e9": rec}))
     return rec, outs
 

@@ -3,9 +3,10 @@
 Each of `pffdtd_tpu_torch/csrc/*.cu` compiles in its own nvcc process, all
 started together, and the objects link into one shared library with a
 plain C interface under `pffdtd_tpu_torch/_build/` (listed in .gitignore).
-The library's name carries a hash of the sources and flags, so a checkout
-builds on first use and reuses the build after.  No PyTorch header is
-included, which keeps the build to seconds.
+The library's name carries a hash of the sources, the headers they share
+(`csrc/*.cuh`) and the flags, so a checkout builds on first use and reuses
+the build after.  No PyTorch header is included, which keeps the build to
+seconds.
 
 `-fmad=false` keeps nvcc from contracting a*b+c into one FMA: each kernel
 then rounds every operation as its plain PyTorch version does, and the two
@@ -42,6 +43,11 @@ SIGNATURES = {
     # a2, sl2, lQ1, lQ2, lQ3, stream
     "pf_stencil_step": [_i, _i, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
                         _d, _d, _d, _d, _d, _vp],
+    # dtype, nn, u0, u1, adj, out, Lu, part, npart, Nx, Ny, Nz, folded,
+    # a2, sl2, lQ1, lQ2, lQ3, lfac, inv_l2, stream
+    "pf_stencil_energy_step": [_i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _ll,
+                               _i, _i, _i, _i, _d, _d, _d, _d, _d, _d, _d,
+                               _vp],
     # dtype, nn, u0, u1, adj, out, Nx (global), Ny, Nz, folded, G, S, xo,
     # a2, sl2, lQ1, lQ2, lQ3, stream
     "pf_stencil_step_shard": [_i, _i, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
@@ -112,7 +118,7 @@ def library() -> KernelLibrary:
         return _LIB
     srcs = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
+    for p in srcs + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     so = BUILD / f"libpffdtd_kernels_{h.hexdigest()[:16]}.so"

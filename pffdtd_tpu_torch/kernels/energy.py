@@ -14,6 +14,11 @@ Counterpart of what XLA fuses out of `pffdtd_tpu/engine/jax_engine.py`
   (vh_prev, gh_prev) the step and the source samples sig: writes H[n] into
   the 0-d `H` and adds dE_lost and dE_in to the 0-d accumulators.
 
+The engine does not launch the grid pass: K1's energy mode
+(`kernels.stencil.stencil_energy_step`, K1e) computes it in the step's own
+launch and writes the same bits into `part`.  The grid pass stays as the
+two-pass design that K1e is checked and timed against.
+
 On CUDA tensors the wrappers launch `csrc/energy.cu`, whose sums are fp64
 per block, then reduced in a fixed order by a second stage of its own (no
 atomics, no `torch.sum`): a run and its resume give the same bits.  On CPU

@@ -17,6 +17,12 @@ afresh from interior data, so they are never read.
 `stencil_step_shard_plain` compute the same step on the owned rows of one
 x-slab (`engine.data.SlabSpec`), the counterpart of
 `pffdtd_tpu/engine/pallas_stencil.py` `build_fused_stencil_sharded`.
+
+`stencil_energy_step` (K1e, the same source in energy mode) runs the step
+and, in the same launch, K7's grid pass (`kernels.energy`): L u^n over L
+u^{n-1} in place and H[n]'s grid sums into K7's scratch, the bits that
+`energy_grid_pass` writes.  Its plain version, `stencil_energy_step_plain`,
+is `energy_grid_pass_plain` followed by `stencil_step_plain`.
 """
 
 from __future__ import annotations
@@ -109,6 +115,49 @@ def stencil_step(u0, u1, adj, out, grid, sc):
 
 
 stencil_step.launches = 0
+
+
+def stencil_energy_step(u0, u1, adj, out, Lu, part, grid, sc, es):
+    """One K1e call: K1's step into `out` and K7's grid pass in the same
+    launch (L u^n over `Lu`, H[n]'s grid sums into `part`, then K7's
+    middle stage); returns `out`.
+
+    u0 = u^{n-1}, u1 = u^n, out = scratch for u^{n+1}, Lu = L u^{n-1}
+    (zero halos); part: (kernels.energy.scratch_size(grid, Nbl),) float64;
+    es: the engine.energy.EnergyScene of this grid, holding `adj`."""
+    # kernels.energy imports engine.energy, which imports this module
+    from pffdtd_tpu_torch.kernels.energy import _check_grid, _distinct
+    dev, _ = _check_grid(es, u0, u1, Lu, part)
+    nn = _check(u0, u1, adj, out, grid)
+    if adj.data_ptr() != es.adj.data_ptr() or es.grid != grid:
+        raise ValueError("es: the energy scene must be of this grid and "
+                         "hold this adjacency")
+    _distinct((("Lu", Lu), ("out", out)))
+    if dev.type == "cpu":
+        return stencil_energy_step_plain(u0, u1, adj, out, Lu, part, grid,
+                                         sc, es)
+    lib = _build.library()
+    Nx, Ny, Nz = grid.shape
+    rc = lib.pf_stencil_energy_step(
+        *_launch_args(u0, u1, adj, out, nn), Lu.data_ptr(), part.data_ptr(),
+        part.numel(), Nx, Ny, Nz, int(grid.folded), sc.a2, sc.sl2, sc.l * 1,
+        sc.l * 2, sc.l * 3, es.lfac, es.inv_l2,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "stencil_energy_step")
+    stencil_energy_step.launches += 1
+    return out
+
+
+stencil_energy_step.launches = 0
+
+
+def stencil_energy_step_plain(u0, u1, adj, out, Lu, part, grid, sc, es):
+    """PyTorch version of K1e (same signature and result): K7's plain grid
+    pass (H[n]'s grid terms, in the state's dtype, to part[0]), then K1's
+    plain step."""
+    from pffdtd_tpu_torch.kernels.energy import energy_grid_pass_plain
+    energy_grid_pass_plain(es, u0, u1, Lu, part)
+    return stencil_step_plain(u0, u1, adj, out, grid, sc)
 
 
 def stencil_step_plain(u0, u1, adj, out, grid, sc):

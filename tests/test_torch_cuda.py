@@ -20,7 +20,12 @@ receivers on chunk and tile edges; K4 on sizes that leave a tail after
 whole float4s and after whole blocks.  K7's two passes (the energy
 terms) from a random state: L u^n at the bounds above, the energies
 <= 1e-12 in fp64 and, in fp32, no further from the fp64 value than the
-fp32 plain passes; K8 (the modal recurrence) <= 1e-12 of its numpy loop
+fp32 plain passes; K1e (K1's energy mode: the step and K7's grid pass in
+one launch) bitwise equal to its plain version (u^{n+1}, L u^n) and its
+partial sums bitwise equal to K7's grid pass, the energy route (K1e, K2,
+K7's boundary pass) bitwise equal to the two-pass route composed from K7's
+grid pass, K1, K2 and K7's boundary pass, and its resume bitwise equal to
+the uninterrupted run; K8 (the modal recurrence) <= 1e-12 of its numpy loop
 and of its design's plain version (`modal_split_plain`), its loop modes
 bitwise equal to the numpy loop.
 Beside the kernels: the energy route (K1 + K2 + K7) against the plain
@@ -39,13 +44,16 @@ from pffdtd_tpu_torch.kernels import tb as ktb
 from pffdtd_tpu_torch.io.simdata import MMb
 from pffdtd_tpu_torch.kernels.boundary import (boundary_update,
                                                boundary_update_plain)
-from pffdtd_tpu_torch.kernels.energy import (energy_boundary_pass,
+from pffdtd_tpu_torch.kernels.energy import (GRID_THREADS, MID_BLOCKS,
+                                             energy_boundary_pass,
                                              energy_boundary_pass_plain,
                                              energy_grid_pass,
                                              energy_grid_pass_plain,
                                              scratch_size)
 from pffdtd_tpu_torch.kernels.modal import modal_scan
-from pffdtd_tpu_torch.kernels.stencil import stencil_step, stencil_step_plain
+from pffdtd_tpu_torch.kernels.stencil import (stencil_energy_step,
+                                              stencil_energy_step_plain,
+                                              stencil_step, stencil_step_plain)
 from pffdtd_tpu_torch.kernels.stream import stream, stream_plain
 from pffdtd_tpu_torch.kernels.stencil import (stencil_step_shard,
                                               stencil_step_shard_plain)
@@ -437,6 +445,93 @@ def test_energy_passes_match_plain(cuda, name, dtype):
     r = _energy_passes(plain, es64, ins64, outs64)
     for a, b, ref in zip(k[1:], p[1:], r[1:]):
         assert abs(float(a) - float(ref)) <= abs(float(b) - float(ref))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("name", list(CASES))
+def test_energy_step_matches_plain(cuda, name, dtype):
+    """K1e vs its plain version from a random state: u^{n+1} and L u^n
+    bitwise; its scratch bitwise equal to K7's grid pass's; H, dE_lost and
+    dE_in after K7's boundary pass as in test_energy_passes_match_plain."""
+    eng = _engine(name, dtype, energy_on=True)
+    d, es = eng.data, eng.energy_scene
+    ins, outs = _energy_inputs(eng, cuda, dtype, seed=11)
+    u0, u1, unew, vh, vh_prev, gh_prev, sig = ins
+    res = []
+    for fn in (stencil_energy_step, stencil_energy_step_plain):
+        Lu, part, H, E_lost, E_in = outs()
+        out = torch.zeros_like(u0)
+        n = stencil_energy_step.launches
+        fn(u0, u1, eng.adj, out, Lu, part, d.grid, d.sc, es)
+        bp = (energy_boundary_pass if fn is stencil_energy_step
+              else energy_boundary_pass_plain)
+        bp(es, unew, u0, vh, vh_prev, gh_prev, sig, part, H, E_lost, E_in)
+        torch.cuda.synchronize()
+        assert stencil_energy_step.launches == n + (fn is stencil_energy_step)
+        res.append((out, Lu, part, H, E_lost, E_in))
+    (ok, Lk, pk, *ek), (op, Lp, _, *ep) = res
+    assert torch.equal(ok[1:-1, 1:-1, 1:-1], op[1:-1, 1:-1, 1:-1])
+    assert torch.equal(Lk, Lp)
+    Lg, pg = outs()[:2]
+    energy_grid_pass(es, u0, u1, Lg, pg)
+    torch.cuda.synchronize()
+    Nx, Ny, Nz = d.grid.shape   # the grid sums, then their middle stage's
+    n = 2 * (-(-(Nz - 2) // GRID_THREADS) * (Ny - 2) * (Nx - 2) + MID_BLOCKS)
+    assert torch.equal(Lg, Lk) and torch.equal(pg[:n], pk[:n])
+    if dtype == np.float64:
+        for a, b in zip(ek, ep):
+            assert _rel(a, b) <= 1e-12
+
+
+def _two_pass_step_energy(eng, state, sig_n, out_row, en):
+    """The energy step as K7's grid pass, K1 + K2 + sources and K7's
+    boundary pass (the kernels' wrappers): the route before K1e."""
+    es = eng.energy_scene
+    u0, u1, _, vh, gh = state
+    energy_grid_pass(es, u0, u1, en.Lu, en.part)
+    en.vh_prev.copy_(vh)
+    en.gh_prev.copy_(gh)
+    eng.step(state, sig_n, out_row)
+    H = torch.empty((), dtype=eng.dtype, device=eng.device)
+    return energy_boundary_pass(es, state[1], u0, state[3], en.vh_prev,
+                                en.gh_prev, sig_n, en.part, H, en.E_lost,
+                                en.E_in)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("name", list(CASES))
+def test_energy_route_equals_two_pass_route(cuda, name, dtype):
+    """The engine's energy route launches K1e, K2 and K7's boundary pass
+    once a step and K1 and K7's grid pass never; receivers, H, E_lost,
+    E_in and the final fields are bitwise equal to the two-pass route."""
+    k = _engine(name, dtype, energy_on=True)
+    wrappers = (stencil_energy_step, stencil_step, boundary_update,
+                energy_grid_pass, energy_boundary_pass)
+    n = [w.launches for w in wrappers]
+    k.run(verbose=False)
+    got = [w.launches - a for w, a in zip(wrappers, n)]
+    nbl = k.Nt if k.data.Nbl else 0
+    assert got == [k.Nt, 0, nbl, 0, k.Nt]
+    t = _engine(name, dtype, energy_on=True)
+    t.step_energy = lambda *a: _two_pass_step_energy(t, *a)
+    t.run(verbose=False)
+    for a in ("u_out", "H_tot", "E_lost", "E_in"):
+        assert np.array_equal(getattr(k, a), getattr(t, a)), a
+    for a, b in zip(k.state, t.state):
+        assert torch.equal(a, b)
+
+
+def test_energy_resume_on_card(cuda, tmp_path):
+    ck = tmp_path / "state.npz"
+    a = _engine("fcc-folded", np.float64, energy_on=True)
+    a.run(nt=29, verbose=False)
+    _engine("fcc-folded", np.float64, energy_on=True).run(
+        nt=23, verbose=False, chunk=5, checkpoint_every=2,
+        checkpoint_path=ck)
+    b = _engine("fcc-folded", np.float64, energy_on=True)
+    b.run(nt=29, verbose=False, chunk=5, checkpoint_path=ck, resume=True)
+    for k in ("u_out", "H_tot", "E_lost", "E_in"):
+        assert np.array_equal(getattr(a, k), getattr(b, k)), k
 
 
 def test_modal_filter_on_card(cuda):

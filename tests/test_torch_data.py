@@ -161,6 +161,7 @@ import pffdtd_tpu_torch.engine.energy
 import pffdtd_tpu_torch.engine.torch_engine
 import pffdtd_tpu_torch.viz
 import pffdtd_tpu_torch.io.h5
+import pffdtd_tpu_torch.kernels.k1e_probe
 import pffdtd_tpu_torch.kernels.stream
 import pffdtd_tpu_torch.kernels.tb
 import pffdtd_tpu_torch.parallel.partition

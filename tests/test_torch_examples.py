@@ -267,6 +267,31 @@ def test_setup_1e9_routes_match_jax(capsys):
         assert np.array_equal(outs[route], outs["step"]), route
 
 
+@pytest.mark.parametrize("f64", [True, False])
+def test_setup_1e9_energy_route(capsys, f64):
+    """The energy route (fp64 whatever --f64 says) after the step route:
+    its balance below 1e-9, its receivers bitwise equal to the fp64 step
+    route's; against the fp32 step route the difference is fp32's rounding
+    of the impulse response (2.5e-5 of max |u_out| here), far below the
+    O(1) of another simulation; no plain check."""
+    argv = ["--h", "0.5", "--device", "cpu", "--routes", "step,energy",
+            "--check"]
+    rec, outs = setup_1e9.main(argv + (["--f64"] if f64 else []))
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    en = last["setup_1e9"]["routes"]["energy"]
+    assert list(outs) == ["step", "energy"]
+    assert en["balance"] < 1e-9 and en["E_lost"] > 0
+    assert en["checks"] == {} and set(en["launches"].values()) == {0}
+    assert en["peak_gb"] is None and en["reckoned_gb"] > 0
+    if f64:
+        assert np.array_equal(outs["energy"], outs["step"])
+        assert rec["receivers_vs_first"] == {"step": 0.0, "energy": 0.0}
+    else:
+        assert outs["energy"].dtype == np.float64
+        assert 0 < rec["energy_fp64_vs_first"] <= 1e-3
+        assert rec["receivers_vs_first"] == {"step": 0.0}
+
+
 def test_setup_1e9_refuses_unknown_routes():
     with pytest.raises(ValueError, match="--routes"):
         setup_1e9.main(["--h", "0.5", "--device", "cpu", "--routes", "pair"])
