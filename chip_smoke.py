@@ -18,7 +18,13 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
 2. Per-kernel checks at the main path's shapes, from a seeded random state:
    each kernel vs its plain PyTorch version on the card, one call each.
    K1 and K2: fp32 max relative error <= 1e-6 (one call differs at most by
-   summation order: the kernels are built without FMA contraction).  K3, one
+   summation order: the kernels are built without FMA contraction; K2's
+   plain version adds the branches in the kernel's order, so K2 reads 0).  K2's
+   time at the headline (no lossy node on an ABC layer: K2 as it was)
+   beside its time before the ABC mode (PERF.md's kernel table); K2's ABC mode on the headline box without its
+   top wall (its side walls' lossy nodes reach the top ABC layer), bitwise
+   equal to its plain version, timed beside K2 without the mode on the
+   same inputs.  K3, one
    sweep of every TB = 2..8 (fields, vh/gh, taps): <= 1e-5 of the largest
    magnitude of each output, each timed (ms per sweep and per step: the
    TB scan; TB = 2 and 3 over 20 sweeps, the deeper ones over 3).  K7's
@@ -39,8 +45,14 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    split, <= 1e-6; K6 with TB = 2 and 3 on the same slabs (fields, owned
    vh/gh, taps), <= 1e-5 of each output's largest magnitude; then fp64 on
    the small scenes at D = 2, <= 1e-12.
-3. Small scenes, fp64, kernels vs plain versions: a lossy Cartesian box and
-   a lossy FCC box, unfolded and folded.  The single-step route, and the
+3. Small scenes, fp64, kernels vs plain versions.  First two open-top lossy
+   boxes, Cartesian and folded FCC, whose lossy nodes reach the top ABC
+   layer: K1 and K2 (its ABC mode) vs their plain versions <= 1e-12 and K2
+   bitwise, the step route vs the plain path and the x-slab step route at
+   D = 2 vs the single device on the same padded grid <= 1e-12 (64 steps),
+   launches checked; the tb, pair and energy routes, and the x-slab tb and
+   pair routes, must refuse them, naming the step route.  Then a lossy
+   Cartesian box and a lossy FCC box, unfolded and folded.  The single-step route, and the
    TB = 3 and pair (TB = 2) routes over 29 steps (not a multiple of TB, so
    the tail steps run), vs the plain single-step path: receivers <= 1e-12;
    the same three routes of the sharded engine at D = 2 (K5, K6), vs the
@@ -144,7 +156,28 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    nonzero; the fp64 energy route's difference printed).  The launches of its K1, K2, K3 and K5 and their times a
    call in the checks go into the kernels' record as `launches_1e9` and
    `ms_1e9`.
-The last two lines are the kernels' JSON record and
+9. The bench: `python -m pffdtd_tpu_torch.bench` in a subprocess of its
+   own session (a timeout kills it and its item processes) with
+   BENCH_SKIP=fcc_lossy_1e9,cart_rigid_1e9,mv_fcc_lossy (phase 8 covers
+   10^9 voxels; the Musikverein hall is not in the repository) and its
+   default budget, which skips nothing else.  Required: exit code 0, a last
+   line that parses as JSON, the metric voxel_update_rate_fp32_fcc_lossy
+   with a value > 0 and no headline_note, the card as its device (name,
+   power limit, count 1), every key of the items it ran, both
+   *_vs_single_err < 1e-4, kernel_vs_energy_route_err <= 1e-5, both drift
+   ratios finite and the lossy one <= 1.  The launches of each engine run
+   of each item (the bench sets the counts to 0 just before each run and
+   writes them to stderr): every item that ran handed them back, each run
+   on the route, TB and slab count its item sets (BENCH_RUNS), and each
+   launched exactly what its route must for its steps (K1 and K2 a step,
+   K3 a sweep, K5 and K6 on x-slabs, K1e + K2 + K7 on the energy route, K2
+   only on lossy scenes; `bench_want`), the open-top items with lossy
+   nodes on an ABC layer (K2's ABC mode) and no other item with any, the
+   roof K4 alone; over the bench, K1-K7 and K1e each launched.  Its line,
+   its seconds and its launches are printed; each kernel's total goes into
+   the kernels' record as `launches_bench`.
+The last two lines are the kernels' JSON record (K2's row carries its ABC
+mode's time, bound and launches under "abc_mode") and
 {"ok": true, "device": {...}}.  The work sits under `__main__`, so importing
 this file runs nothing.
 """
@@ -153,6 +186,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -171,6 +206,7 @@ from pffdtd_tpu_torch.analysis.air_abs import (_modal_setup,
 from pffdtd_tpu_torch.consts import SimConsts
 from pffdtd_tpu_torch.engine.energy import EnergyScene
 from pffdtd_tpu_torch.engine.numpy_ref import NumpyEngine
+from pffdtd_tpu_torch.bench import METRIC as BENCH_METRIC, WRAPPERS, rel_err
 from pffdtd_tpu_torch.engine.torch_engine import TorchEngine, pick_route
 from pffdtd_tpu_torch.examples.setup_1e9 import StageTimer, peak_rss_gb
 from pffdtd_tpu_torch.io.simdata import MMb
@@ -219,6 +255,15 @@ SMALL = {  # name: (box, h, fcc, fold, Nt), the scenes of test_pallas_stencil
     "fcc": ((2.2, 1.8, 1.5), 0.12, True, False, 30),
     "fcc_folded": ((2.2, 1.8, 1.5), 0.12, True, True, 30),
 }
+# phase 3: open-top lossy boxes, whose side walls' lossy nodes reach the
+# top ABC layer (K2's ABC mode); as SMALL
+OPEN_SMALL = {
+    "cart_open": ((1.2, 1.0, 0.9), 0.08, False, False, 64),
+    "fcc_folded_open": ((1.2, 1.0, 0.9), 0.1, True, True, 64),
+}
+# phase 2: K2 at the headline before its ABC mode (PERF.md's kernel table;
+# H100 80GB HBM3, 700 W)
+K2_PARENT_MS = 0.1320
 STREAM_MB = (64, 512, 2048)
 # NVIDIA's published H100 SXM peaks (dense, no sparsity)
 HBM_BPS = 3.35e12
@@ -242,14 +287,6 @@ KERNELS = {  # name: (source, replaces)
     "K1e stencil_energy_step": (SRC + "stencil.cu",
                                 "pffdtd_tpu/engine/jax_engine.py:704"),
 }
-# each kernel's wrappers, whose launches add up per kernel; K7's boundary
-# pass (K7) and its grid pass (K7g, which the energy route no longer
-# launches: K1e computes it) count apart
-WRAPPERS = {"K1": (stencil_step,), "K2": (boundary_update,),
-            "K3": (tb_sweep,), "K4": (stream,), "K5": (stencil_step_shard,),
-            "K6": (tb_sweep_shard,), "K7": (energy_boundary_pass,),
-            "K8": (modal_scan,), "K1e": (stencil_energy_step,),
-            "K7g": (energy_grid_pass,)}
 ZERO = (0,) * len(WRAPPERS)
 # phase 6b: the headline energy runs, and the long fp64 one that reaches
 # the floor and the ceiling (11.5 m from the source: about 250 steps of
@@ -276,6 +313,40 @@ SHARDED = ((4, "step", {}), (4, "pair", {}), (4, "tb", {"tb": 3}),
 GRID_1E9 = [1288, 1008, 808]
 ROUTES_1E9 = ("step", "tb", "x4", "energy")
 TIMEOUT_1E9 = 900
+# phase 9: the bench's items left out (phase 8 covers 10^9 voxels; the hall
+# is not in the repository), the keys of the items it runs, its time limit
+BENCH_SKIP = "fcc_lossy_1e9,cart_rigid_1e9,mv_fcc_lossy"
+BENCH_KEYS = (
+    "fcc_lossy_tb", "fcc_lossy_pair", "sharded_pair_mvps",
+    "sharded_pair_vs_single_err", "sharded_pair_vs_single_frac",
+    "kernel_vs_energy_route_err", "energy_balance_fp32", "energy_route_mvps",
+    "fp32_vs_fp64_rir_max_db", "fcc_rigid", "cart_rigid", "cart_lossy",
+    "sharded_step_mvps", "sharded_step_vs_single_err",
+    "fp32_tail_to_head_rms_50k", "fp32_tail_to_head_rms_50k_lossy",
+    "roof_gbps", "k4_copy_gbps", "copy__gbps")
+TIMEOUT_BENCH = 800
+# phase 9: each item's counted runs, {item: {tag: (route, TB, x-slabs,
+# runs)}} (a timed run is a warm-up and 3 runs), and the items on the
+# open-top box, whose K2 must run its ABC mode
+BENCH_RUNS = {
+    "fcc_lossy": {"fcc_lossy": ("step", None, 0, 4),
+                  "fcc_lossy_tb": ("tb", 3, 0, 4),
+                  "fcc_lossy_pair": ("tb", 2, 0, 4)},
+    "sharded_pair": {"sharded_pair_single": ("tb", 2, 0, 4),
+                     "sharded_pair": ("tb", 2, 1, 4)},
+    "energy_pair": {"energy_pair_step": ("step", None, 0, 1),
+                    "energy_pair": ("energy", None, 0, 4)},
+    "fp32_spectral": {"fp32_spectral": ("step", None, 0, 1)},
+    "fcc_rigid": {"fcc_rigid": ("step", None, 0, 4)},
+    "cart_rigid": {"cart_rigid": ("step", None, 0, 4)},
+    "cart_lossy": {"cart_lossy": ("step", None, 0, 4)},
+    "sharded_pallas": {"sharded_step_single": ("step", None, 0, 4),
+                       "sharded_step": ("step", None, 1, 4)},
+    "fp32_drift": {"fp32_drift": ("step", None, 0, 1)},
+    "fp32_drift_lossy": {"fp32_drift_lossy": ("step", None, 0, 1)},
+    "roof": {"roof": ("stream", None, None, 1)},
+}
+BENCH_OPEN_TOP = ("fp32_spectral", "fp32_drift_lossy")
 
 
 class SmokeFailure(Exception):
@@ -295,18 +366,23 @@ def rel(a, b):
 
 
 def small_scene(name):
-    box, h, fcc, fold, nt = SMALL[name]
+    open_top = name in OPEN_SMALL
+    box, h, fcc, fold, nt = (OPEN_SMALL if open_top else SMALL)[name]
     sim = synthetic_box_sim(*box, h=h, Nt=nt, fcc=fcc, lossy=True,
-                            insig_type="hann10", diff_source=False)
+                            insig_type="hann10", diff_source=False,
+                            open_top=open_top)
     return fold_fcc_sim(sim) if fold else sim
 
 
-def headline_scene(nt):
+def headline_scene(nt, open_top=False):
+    """The headline box; open_top: without its top wall (phase 2's scene
+    for K2's ABC mode)."""
     Lx, Ly, Lz, h = HEADLINE
     src = np.array([0.45 * Lx, 0.55 * Ly, 0.5 * Lz])
     rxyz = src + np.array([[1.3, -0.8, 0.6], [-1.3, 1.4, -0.9]])
     sim = synthetic_box_sim(Lx, Ly, Lz, h=h, Nt=nt, fcc=True, lossy=True,
-                            insig_type="impulse", DEF=DEF11, Rxyz=rxyz)
+                            insig_type="impulse", DEF=DEF11, Rxyz=rxyz,
+                            open_top=open_top)
     return sort_sim(fold_fcc_sim(rotate_sim(sim, orient="descending")))
 
 
@@ -346,8 +422,8 @@ def kernel_checks(eng, gen, timing_reps=0):
     k2_args = (eng.bnl, eng.ssaf, eng.mat, eng.coef_table, eng.beta)
     unk, unp = outp.clone(), outp.clone()
     vhk, ghk, vhp, ghp = vh.clone(), gh.clone(), vh.clone(), gh.clone()
-    boundary_update(unk, u0, *k2_args, vhk, ghk, sc)
-    boundary_update_plain(unp, u0, *k2_args, vhp, ghp, sc)
+    boundary_update(unk, u0, *k2_args, vhk, ghk, sc, eng.abcq)
+    boundary_update_plain(unp, u0, *k2_args, vhp, ghp, sc, eng.abcq)
     torch.cuda.synchronize()
     errs = [rel(unk, unp), rel(vhk, vhp), rel(ghk, ghp)]
     k2 = (max(e[0] for e in errs), max(e[1] for e in errs))
@@ -359,11 +435,65 @@ def kernel_checks(eng, gen, timing_reps=0):
                    time_ms(lambda: stencil_step_plain(u0, u1, eng.adj, outp,
                                                       g, sc), 3))
         t["K2"] = (time_ms(lambda: boundary_update(unk, u0, *k2_args, vhk,
-                                                   ghk, sc), timing_reps),
-                   time_ms(lambda: boundary_update_plain(unp, u0, *k2_args,
-                                                         vhp, ghp, sc), 3))
+                                                   ghk, sc, eng.abcq),
+                           timing_reps),
+                   time_ms(lambda: boundary_update_plain(
+                       unp, u0, *k2_args, vhp, ghp, sc, eng.abcq), 3))
     return {"K1": k1 + t.get("K1", (None, None)),
             "K2": k2 + t.get("K2", (None, None))}
+
+
+def k2_abc_check(eng, gen, timing_reps=0):
+    """One call of K2 in its ABC mode (eng.abcq: a scene with lossy nodes
+    on an ABC layer) vs its plain version from a random state, required
+    bitwise equal; with timing_reps, K2 timed in its ABC mode and without it
+    on the same inputs.  Returns (flagged nodes, ms, plain ms, ms without
+    the ABC mode), the times None without timing_reps."""
+    d = eng.data
+    require(eng.abcq is not None, "k2_abc_check: no node on an ABC layer")
+    u0, un, vh, gh = random_state(eng, gen)
+    k2_args = (eng.bnl, eng.ssaf, eng.mat, eng.coef_table, eng.beta)
+    outs = []
+    for k2 in (boundary_update, boundary_update_plain):
+        x, v, w = un.clone(), vh.clone(), gh.clone()
+        k2(x, u0, *k2_args, v, w, d.sc, eng.abcq)
+        outs.append((x, v, w))
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(*outs)),
+            "K2's ABC mode differs from its plain version")
+    nflag = int((eng.abcq > 0).sum())
+    if not timing_reps:
+        return nflag, None, None, None
+    x, v, w = outs[0]
+    return (nflag,
+            time_ms(lambda: boundary_update(x, u0, *k2_args, v, w, d.sc,
+                                            eng.abcq), timing_reps),
+            time_ms(lambda: boundary_update_plain(x, u0, *k2_args, v, w,
+                                                  d.sc, eng.abcq), 3),
+            time_ms(lambda: boundary_update(x, u0, *k2_args, v, w, d.sc),
+                    timing_reps))
+
+
+def require_abc_refusals(sim, name):
+    """The TB routes and the energy route refuse a scene with lossy nodes
+    on an ABC layer, naming the step route; so do the x-slab TB routes."""
+    for kw in ({"backend": "tb", "tb": 3}, {"backend": "pair"},
+               {"energy_on": True}):
+        try:
+            engine(sim, np.float64, **kw)
+        except ValueError as e:
+            require("the step route" in str(e), f"{name} {kw}: {e}")
+        else:
+            raise SmokeFailure(f"{name} {kw}: the route took a scene with "
+                               "lossy nodes on an ABC layer")
+    for backend in ("tb", "pair"):
+        try:
+            sharded(sim, np.float64, 2, backend=backend)
+        except ValueError as e:
+            require("the step route" in str(e), f"{name} x2 {backend}: {e}")
+        else:
+            raise SmokeFailure(f"{name} x2 {backend}: the route took a "
+                               "scene with lossy nodes on an ABC layer")
 
 
 def tb_check(eng, gen, timing_reps=0, plain_reps=2):
@@ -723,14 +853,13 @@ def once_ms(fn):
 
 
 def reset_counts():
-    for ws in WRAPPERS.values():
-        for w in ws:
-            w.launches = 0
+    for w in WRAPPERS.values():
+        w.launches = 0
 
 
 def counts():
     """The launches since reset_counts, a tuple in WRAPPERS' order."""
-    return tuple(sum(w.launches for w in ws) for ws in WRAPPERS.values())
+    return tuple(w.launches for w in WRAPPERS.values())
 
 
 def launches(**kw):
@@ -1456,6 +1585,124 @@ def phase8(roof):
                    checks.get(k, {}).get("ms")) for k, name in names.items()}
 
 
+def bench_want(r):
+    """The launches (a counts() tuple) one counted bench run `r` must make:
+    K1 (K5 on x-slabs) and K2 a step, K3 (K6) a sweep with the rest of nt
+    in single steps, K2 only where the scene has lossy nodes, and on the
+    energy route K1e, K2 and K7's boundary pass a step."""
+    nt, TB, D, k2 = r["nt"], r["TB"], r["x_slabs"], int(r["lossy"])
+    if r["route"] == "energy":
+        return launches(K1e=nt, K2=k2 * nt, K7=nt)
+    sweeps, rest = divmod(nt, TB) if TB else (0, nt)
+    if D == 0:
+        return launches(K1=rest, K2=k2 * rest, K3=sweeps)
+    return launches(K5=D * rest, K2=k2 * D * rest, K6=D * sweeps)
+
+
+def bench_launches(err):
+    """Phase 9's launch checks on the bench's stderr (its BENCH_LAUNCHES
+    lines, see the bench's docstring); returns {kernel: launches over
+    every counted run}."""
+    recs = {}
+    for line in err.splitlines():
+        if line.startswith("BENCH_LAUNCHES "):
+            _, item, payload = line.split(" ", 2)
+            recs[item] = json.loads(payload)
+    require(set(recs) == set(BENCH_RUNS), f"the bench's launches came from "
+            f"{sorted(recs)}, want {sorted(BENCH_RUNS)}")
+    total = dict.fromkeys(WRAPPERS, 0)
+    for item, runs in recs.items():
+        tags = {}
+        for r in runs:
+            tags.setdefault(r["tag"], []).append(r)
+            c = tuple(r["launches"].get(k, 0) for k in WRAPPERS)
+            for k, n in zip(WRAPPERS, c):
+                total[k] += n
+            if r["route"] == "stream":
+                require(set(r["launches"]) == {"K4"},
+                        f"the bench's roof launched {r['launches']}")
+                continue
+            require(r["nt"] > 0 and c == bench_want(r), f"the bench's "
+                    f"{item} {r['tag']} ({r['route']} TB={r['TB']}, "
+                    f"{r['x_slabs']} x-slabs, {r['nt']} steps): launches "
+                    f"{r['launches']}, want {named(bench_want(r))}")
+            open_top = item in BENCH_OPEN_TOP
+            require((r["abc_nodes"] > 0) == open_top and r["lossy"]
+                    >= open_top, f"the bench's {item} {r['tag']}: "
+                    f"{r['abc_nodes']} lossy nodes on an ABC layer")
+        got = {t: (rs[0]["route"], rs[0].get("TB"), rs[0].get("x_slabs"),
+                   len(rs)) for t, rs in tags.items()}
+        require(got == BENCH_RUNS[item], f"the bench's {item} ran {got}, "
+                f"want {BENCH_RUNS[item]}")
+        print(f"[9] launches {item}: " + "; ".join(
+            f"{t} {named(tuple(rs[-1]['launches'].get(k, 0) for k in WRAPPERS))}"
+            f" x{len(rs)}" for t, rs in tags.items()), flush=True)
+    used = {k for k, n in total.items() if n}
+    require(used == {"K1", "K2", "K3", "K4", "K5", "K6", "K7", "K1e"},
+            f"the bench launched {sorted(used)}")
+    return total
+
+
+def phase9(card):
+    """The bench, `python -m pffdtd_tpu_torch.bench`, in a subprocess (its
+    own session: a timeout kills it and its item processes), every item but
+    BENCH_SKIP's; its line and its runs' launches are checked and printed;
+    returns {kernel: launches over the bench's counted runs}."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, BENCH_SKIP=BENCH_SKIP)
+    env.pop("BENCH_ONLY", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pffdtd_tpu_torch.bench"],
+        cwd=Path(__file__).resolve().parent, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=TIMEOUT_BENCH)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SmokeFailure(f"the bench ran past {TIMEOUT_BENCH} s")
+    secs = time.perf_counter() - t0
+    for line in err.splitlines():
+        if "[bench]" in line or line.startswith("["):
+            print(f"[9] {line.strip()}", flush=True)
+    require(proc.returncode == 0, f"the bench exited with "
+            f"{proc.returncode}:\n{out[-2000:]}\n{err[-4000:]}")
+    lines = out.strip().splitlines()
+    require(lines, "the bench printed no line")
+    try:
+        rec = json.loads(lines[-1])
+    except json.JSONDecodeError as e:
+        raise SmokeFailure(f"the bench's last line is not JSON: {e}: "
+                           f"{lines[-1][:300]}")
+    sec = rec.get("secondary", {})
+    require(rec.get("metric") == BENCH_METRIC and (rec.get("value") or 0) > 0,
+            f"the bench's headline: {rec.get('metric')} = {rec.get('value')}")
+    require("headline_note" not in rec,
+            f"the bench fell back: {rec.get('headline_note')}")
+    dev = rec.get("device", {})
+    require(dev.get("name") == torch.cuda.get_device_name(0)
+            and dev.get("count") == 1
+            and f"{dev.get('power_limit_w'):.2f} W" in card,
+            f"the bench's device {dev}, the card {card}")
+    missing = [k for k in BENCH_KEYS if k not in sec]
+    require(not missing, f"the bench's line lacks {missing}")
+    for k in ("sharded_pair_vs_single_err", "sharded_step_vs_single_err"):
+        require(sec[k] < 1e-4, f"the bench's {k} = {sec[k]}")
+    require(sec["kernel_vs_energy_route_err"] <= 1e-5,
+            f"kernel_vs_energy_route_err {sec['kernel_vs_energy_route_err']}")
+    drift = (sec["fp32_tail_to_head_rms_50k"],
+             sec["fp32_tail_to_head_rms_50k_lossy"])
+    require(all(np.isfinite(drift)) and drift[1] <= 1.0,
+            f"the bench's drift ratios {drift}: finite, the lossy one <= 1")
+    total = bench_launches(err)
+    print(f"[9] the bench: {secs:.1f} s, skipped {BENCH_SKIP}; launches "
+          f"over its counted runs {named(tuple(total.values()))}; its line:",
+          flush=True)
+    print(lines[-1], flush=True)
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False: this smoke "
@@ -1538,6 +1785,28 @@ def main():
         print(f"[2] {k} fp32 main shapes: max rel err {r:.3e} (abs {a:.3e}),"
               f" kernel {ms:.4f} ms, plain {pms:.4f} ms", flush=True)
         require(r <= 1e-6, f"{k} fp32 disagrees with its plain version: {r}")
+    require(eng.abcq is None, "the headline put a lossy node on an ABC "
+            "layer")
+    print(f"[2] K2 at the headline, no node on an ABC layer (K2 as it "
+          f"was): {main_chk['K2'][2]:.4f} ms, before the ABC mode "
+          f"{K2_PARENT_MS:.4f} ({100 * main_chk['K2'][2] / K2_PARENT_MS:.1f}"
+          f"%)", flush=True)
+    # K2's ABC mode at the headline's size: the box without its top wall
+    eng_open = engine(headline_scene(NT, open_top=True), np.float32)
+    nflag, ms_abc, pms_abc, ms_off = k2_abc_check(eng_open, gen,
+                                                  timing_reps=20)
+    isz = eng_open.data.dtype.itemsize
+    k2_abc = SimpleNamespace(
+        nbl=eng_open.data.Nbl, nflag=nflag, ms=ms_abc, plain_ms=pms_abc,
+        nbytes=eng_open.data.Nbl * (4 * MMb * isz + 8 + isz + 4 + 3 * isz
+                                    + 1))
+    print(f"[2] K2 ABC mode, the open-top headline box ({nflag} of "
+          f"{k2_abc.nbl} lossy nodes on an ABC layer): bitwise equal to its "
+          f"plain version; {ms_abc:.4f} ms (without the mode on the same "
+          f"inputs {ms_off:.4f}), plain {pms_abc:.4f} ms, "
+          f"{k2_abc.nbytes / 1e6:.1f} MB", flush=True)
+    del eng_open
+    torch.cuda.empty_cache()
     k7_chk = k7_check(eng, gen, timing_reps=20)
     k7_print_require("fp32 main shapes", k7_chk, fp32=True)
     k1e_chk = k1e_check(eng, gen, timing_reps=20)
@@ -1593,6 +1862,38 @@ def main():
                         f"{r}")
 
     # ---- 3. small scenes, fp64 kernel routes vs the plain path
+    k2_abc_launches = 0
+    for n in OPEN_SMALL:
+        s = small_scene(n)
+        e = engine(s, np.float64)
+        for k, (r, a, _, _) in kernel_checks(e, gen).items():
+            print(f"[3] {k} fp64 {n}: max rel err {r:.3e}", flush=True)
+            require(r <= 1e-12, f"{k} fp64 {n} disagrees: {r}")
+        nflag = k2_abc_check(e, gen)[0]
+        up = engine(s, np.float64, use_kernels=False).run(verbose=False)
+        reset_counts()
+        uk = e.run(verbose=False)
+        c = counts()
+        require(c == launches(K1=e.Nt, K2=e.Nt), f"{n}: launches "
+                f"{named(c)}")
+        k2_abc_launches += c[1]
+        err = rel_err(uk, up)
+        ps = pad_x_interior(s, 2)
+        up2 = engine(ps, np.float64).run(verbose=False)
+        u2 = sharded(s, np.float64, 2).run(verbose=False)
+        err2 = rel_err(u2, up2)
+        print(f"[3] {n} fp64 ({nflag} of {e.data.Nbl} lossy nodes on an ABC "
+              f"layer): K2's ABC mode bitwise equal to its plain version; "
+              f"step route vs plain {err:.3e}, x2 slabs vs the single "
+              f"device {err2:.3e} (bitwise: {np.array_equal(u2, up2)})",
+              flush=True)
+        require(np.isfinite(uk).all() and np.abs(up).max() > 0,
+                f"{n}: not finite or empty")
+        require(err <= 1e-12, f"{n} fp64 step route disagrees: {err}")
+        require(err2 <= 1e-12, f"{n} fp64 x2 slabs disagree: {err2}")
+        require_abc_refusals(s, n)
+    print(f"[3] the TB, pair and energy routes refuse the open-top boxes; "
+          f"K2 launched {k2_abc_launches} times in its ABC mode", flush=True)
     for n, s in small.items():
         up = engine(s, np.float64, backend="step",
                     use_kernels=False).run(nt=NT_SMALL, verbose=False)
@@ -1712,10 +2013,11 @@ def main():
                                     k1e_chk.ms["plain"], k1e_chk.nbytes,
                                     38.0 * ni, None),
     }
-    # phase 8 runs in its own process: free this one's fields and cache
+    # phases 8 and 9 run in processes of their own: free this one's fields
     del eng
     torch.cuda.empty_cache()
     p8 = phase8(roof)
+    p9 = phase9(card)
     rec = {"kernels": []}
     for name, (n, err, ms, pms, nbytes, nops, lib_ms) in rows.items():
         b, by = bound_ms(nbytes, nops, fp64=name in FP64_ROWS)
@@ -1726,7 +2028,18 @@ def main():
             "bound_by": by, "library_ms": lib_ms,
             "bound_roof_ms": nbytes / roof / 1e6,
             "launches_1e9": p8.get(name, (0, None))[0],
-            "ms_1e9": p8.get(name, (0, None))[1]})
+            "ms_1e9": p8.get(name, (0, None))[1],
+            "launches_bench": p9[name.split()[0]]})
+    # K2's ABC mode: its time on the open-top headline box (phase 2) and
+    # its launches on the open-top small scenes (phase 3)
+    b, _ = bound_ms(k2_abc.nbytes, 80.0 * k2_abc.nbl)
+    k2_row = next(r for r in rec["kernels"] if r["name"] == "K2 "
+                  "boundary_update")
+    k2_row["abc_mode"] = {
+        "ms": k2_abc.ms, "plain_ms": k2_abc.plain_ms, "bound_ms": b,
+        "bound_roof_ms": k2_abc.nbytes / roof / 1e6,
+        "launches": k2_abc_launches, "flagged": k2_abc.nflag,
+        "nodes": k2_abc.nbl}
     print(card)   # again, where the end of a long output keeps it
     print(json.dumps(rec))
     print(json.dumps({"ok": True, "device": {

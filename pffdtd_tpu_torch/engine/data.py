@@ -226,13 +226,16 @@ def build_tile_lists(bnl_ixyz, grid: GridSpec, box, TB: int,
                      yz=i32(yz[order]), rptr=i32(rptr))
 
 
-def abc_layer_mask(ixyz, grid: GridSpec) -> np.ndarray:
-    """True where a flat index lies on an ABC layer (Q > 0)."""
+def abc_q(ixyz, grid: GridSpec) -> np.ndarray:
+    """Q, the number of axes on which a flat index lies on an ABC layer
+    (0..3, uint8), by K1's rule: the folded grid's high-y layer is the fold
+    ghost, not an ABC face."""
     ixyz = np.asarray(ixyz, np.int64)
     Nx, Ny, Nz = grid.shape
     ix, iy, iz = ixyz // (Ny * Nz), (ixyz // Nz) % Ny, ixyz % Nz
     y_ext = (iy == 1) if grid.folded else ((iy == 1) | (iy == Ny - 2))
-    return (ix == 1) | (ix == Nx - 2) | y_ext | (iz == 1) | (iz == Nz - 2)
+    faces = [(ix == 1) | (ix == Nx - 2), y_ext, (iz == 1) | (iz == Nz - 2)]
+    return np.sum(faces, axis=0, dtype=np.uint8)
 
 
 class EngineData:
@@ -271,6 +274,10 @@ class EngineData:
         ssaf = saf * (0.5 / np.sqrt(2.0)) if self.fcc else saf
         self.ssaf_bnl = ssaf.astype(self.dtype)
         self.mat_bnl = vox.mat_bn[lossy].astype(np.int32)
+        # Q of the lossy nodes on an ABC layer (0 elsewhere), or None when
+        # none is: K2 then runs as it would without the argument
+        q = abc_q(self.bnl_ixyz, self.grid)
+        self.abcq_bnl = q if q.any() else None
         self.coef_table = self.mc.table(self.dtype)      # (Nmat+1, 4, MMb)
         self.beta = self.mc.beta.astype(self.dtype)      # (Nmat+1,)
 

@@ -50,8 +50,9 @@ import numpy as np
 import torch
 
 from pffdtd_tpu_torch.engine.data import GridSpec
-from pffdtd_tpu_torch.kernels.stencil import (_as_dtype, abc_regions,
-                                              masked_legs, mirrored)
+from pffdtd_tpu_torch.kernels.stencil import (abc_regions, masked_legs,
+                                              mirrored)
+from pffdtd_tpu_torch.utils import as_dtype
 
 
 @dataclass
@@ -82,7 +83,7 @@ class EnergyScene:
     def make(cls, data, *, adj, ssaf, mat, in_ixyz):
         """From an `EngineData` and the engine's device tensors."""
         dt = torch.float32 if data.dtype == np.float32 else torch.float64
-        r = lambda x: _as_dtype(x, dt)
+        r = lambda x: as_dtype(x, dt)
         sc = data.sc
         return cls(grid=data.grid, adj=adj, ssaf=ssaf, mat=mat,
                    def_table=torch.from_numpy(data.def_table).to(adj.device),

@@ -27,8 +27,11 @@ routes compute the same steps:
 
 `_step_core` applies the lossy ODE before the ABC; K1 and K3 apply the ABC
 first.  The two orders agree whenever no lossy node lies on an ABC layer,
-which holds for every scene built with the grid offset of 3.5 h; the engine
-checks it for every route and refuses a scene where it does not hold.
+which holds for every closed room built with the grid offset of 3.5 h.  An
+open room, or a surface that reaches the domain's edge, puts lossy nodes on
+those layers: the step route then passes their Q to K2 (`abcq`), which
+undoes K1's ABC there and applies it after the ODE, the reference's order.
+The TB routes and the energy route refuse such a scene.
 
 Receiver samples go into a preallocated (Nt, Nr) device tensor, so the time
 loop has no host sync.  On CUDA tensors the wrappers launch the hand-written
@@ -61,8 +64,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from pffdtd_tpu_torch.engine.data import EngineData, abc_layer_mask, \
-    mirror_index
+from pffdtd_tpu_torch.engine.data import EngineData, mirror_index
 from pffdtd_tpu_torch.engine.energy import EnergyScene
 from pffdtd_tpu_torch.io.simdata import MMb, read_sim_folder, write_outputs
 from pffdtd_tpu_torch.utils import rel_diff
@@ -102,6 +104,14 @@ def pick_route(backend: str, tb: int = 3):
     return "tb", TB
 
 
+def abc_refusal(route: str) -> str:
+    """The refusal of a route that cannot run lossy nodes on ABC layers."""
+    return (f"a lossy boundary node lies on an ABC layer: the {route} route "
+            "applies the ABC before the lossy update, which is exact only "
+            "off those layers; the step route (backend='step' or 'auto', "
+            "energy off) runs such scenes in the reference's order")
+
+
 class TorchEngine:
     """Single-device FDTD engine on PyTorch tensors."""
 
@@ -129,10 +139,9 @@ class TorchEngine:
                              f"{backend!r} takes TB={self.TB} steps a "
                              f"sweep)")
         self.energy_on = energy_on
-        if d.Nbl and abc_layer_mask(d.bnl_ixyz, d.grid).any():
-            raise ValueError("a lossy boundary node lies on an ABC layer: "
-                             "the kernels apply the ABC before the lossy "
-                             "update, which is exact only off those layers")
+        if d.abcq_bnl is not None and (self.TB is not None or energy_on):
+            route = "energy" if energy_on else f"{self.backend} TB={self.TB}"
+            raise ValueError(abc_refusal(route))
         dev = self.device
 
         def up(a):
@@ -144,6 +153,7 @@ class TorchEngine:
         self.mat = up(d.mat_bnl)
         self.coef_table = up(d.coef_table)
         self.beta = up(d.beta)
+        self.abcq = None if d.abcq_bnl is None else up(d.abcq_bnl)
         self.in_ixyz = up(d.in_ixyz)
         self.out_ixyz_f = up(mirror_index(d.out_ixyz, d.grid))
         self.energy_scene = None
@@ -186,7 +196,7 @@ class TorchEngine:
         k1(u0, u1, self.adj, u2, d.grid, d.sc)
         if d.Nbl:
             k2(u2, u0, self.bnl, self.ssaf, self.mat, self.coef_table,
-               self.beta, vh, gh, d.sc)
+               self.beta, vh, gh, d.sc, self.abcq)
         u2.view(-1).index_add_(0, self.in_ixyz, sig_n)
         state[0], state[1], state[2] = u1, u2, u0
         return state

@@ -36,11 +36,9 @@ from pffdtd_tpu_torch.scene_setup import pack_mats, sim_setup_from_room
 BASELINE_MVPS = 52512.6
 
 
-def bench(ref=REF, fmax=2000.0, nt=100, fcc=True, device="cuda",
-          mats=MV_MATS) -> dict:
-    """Set up the hall in memory, run nt fp32 steps twice; returns the
-    JSON record of the second run.  mats: as ctk_cart_rir.rir's."""
-    dev = check_device(device)
+def mv_sim(ref=REF, fmax=2000.0, nt=100, fcc=True, mats=MV_MATS):
+    """The hall's sim data in memory, rotated, folded (FCC) and sorted,
+    for nt steps.  mats: as ctk_cart_rir.rir's."""
     model, mat_folder = model_inputs(ref, MV_MODEL)
     t0 = time.time()
     rg = RoomGeo(model)
@@ -54,10 +52,17 @@ def bench(ref=REF, fmax=2000.0, nt=100, fcc=True, device="cuda",
     sim = rotate_sim(sim, orient="descending")
     sim = sort_sim(fold_fcc_sim(sim) if fcc else sim)
     v = sim.vox
-    npts = v.Nx * v.Ny * v.Nz
     print(f"setup {time.time() - t0:.1f}s: grid {v.Nx}x{v.Ny}x{v.Nz} = "
-          f"{npts / 1e6:.0f} Mvox, Nb={v.Nb}", file=sys.stderr)
+          f"{v.Nx * v.Ny * v.Nz / 1e6:.0f} Mvox, Nb={v.Nb}", file=sys.stderr)
+    return sim
 
+
+def bench(ref=REF, fmax=2000.0, nt=100, fcc=True, device="cuda",
+          mats=MV_MATS) -> dict:
+    """Set up the hall in memory, run nt fp32 steps twice; returns the
+    JSON record of the second run.  mats: as ctk_cart_rir.rir's."""
+    dev = check_device(device)
+    sim = mv_sim(ref, fmax, nt, fcc, mats)
     eng = TorchEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
                       mats=sim.mats, dtype=np.float32, device=device)
     nt = min(nt, eng.Nt)

@@ -53,9 +53,9 @@ SIGNATURES = {
     "pf_stencil_step_shard": [_i, _i, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
                               _i, _i, _i, _d, _d, _d, _d, _d, _vp],
     # dtype, unew, u0, bnl, ssaf, mat, coef, beta, vh, gh, nbl, l, lo2,
-    # stream
+    # abcq (or null), lQ1, lQ2, lQ3, stream
     "pf_boundary_update": [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                           _ll, _d, _d, _vp],
+                           _ll, _d, _d, _vp, _d, _d, _d, _vp],
     # dtype, nn, tb, u0, u1, adj, out0, out1, Nx, Ny, Nz, folded, Cx, By,
     # Bz, threads, a2, sl2, lQ1, lQ2, lQ3, l, lo2, tl_rptr, tl_node, tl_yz,
     # tl_ring, ne, scratch, ssaf, mat, coef, beta, vh_in, gh_in, vh_out,

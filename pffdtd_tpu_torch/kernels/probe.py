@@ -1,0 +1,300 @@
+"""K1 and K2 of this tree against another checkout's, on the card:
+
+    python -m pffdtd_tpu_torch.kernels.probe --base DIR [--kernels K1,K2]
+
+DIR holds another checkout's `csrc/` files: `stencil.cu` (and `energy.cu`,
+if its K1 calls K7's middle stage) for K1, `boundary.cu` for K2.  Both
+trees' sources are built by nvcc, with the kernels' flags, into libraries
+of their own under `_build/probe/`.  For each kernel:
+1. the SASS of the instances that both trees have (K1/K5 with the energy
+   mode off, K2 without its ABC mode) is compared instruction for
+   instruction;
+2. the kernel is timed from both in turns (base, tree, tree, base, twice),
+   fp32 and fp64: K1 on random fields at the headline cell's shapes (792 x
+   310 x 510, FCC, every leg set), K2 on the headline cell's lossy nodes
+   (the 36 x 28 x 23 m folded-FCC box at h = 0.046: 1,169,067 nodes) from a
+   seeded random state, after one call of each compared bit for bit;
+3. K2 only: on the same box without its top wall (its lossy nodes on the
+   top ABC layer flagged), this tree's K2 in its ABC mode and without it,
+   in turns.
+Times are CUDA-event windows of 20 calls; each line prints every window and
+the best.  The first line printed is the card's name and power limit.
+`kernels.k1e_probe` builds its variants of K1e with the same helpers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from pffdtd_tpu_torch.kernels import _build
+from pffdtd_tpu_torch.kernels.stream import time_ms
+
+SHAPE = (792, 310, 510)
+REPS = 20
+PROBE = _build.BUILD / "probe"
+IN_TURNS = ("base", "tree", "tree", "base") * 2
+_vp, _ll, _d, _i = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double,
+                    ctypes.c_int)
+# pf_boundary_update before K2's ABC mode: no abcq, lQ1..lQ3
+K2_BASE_ARGS = [_i] + [_vp] * 9 + [_ll, _d, _d, _vp]
+# the instances both trees have: (dtype, adj, legs, shard) with the energy
+# mode off; K2's dtype without the ABC mode
+K1_SASS = (r"stencil_step_kernelI([fd])([ht])Li(\d+)ELb([01])E(Lb([01])E)?",
+           (1, 2, 3, 4), 6)
+K2_SASS = (r"boundary_update_kernelI([fd])(Lb([01])E)?", (1,), 3)
+
+
+def card_line():
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+
+
+def build_lib(name: str, sources: dict, include: Path,
+              signatures: dict | None = None) -> ctypes.CDLL:
+    """nvcc of `sources` ({file name: source text}), one process a file,
+    into _build/probe/<name>/lib.so; the C entries present get their
+    argument types from `signatures` (default the kernels')."""
+    d = PROBE / name
+    d.mkdir(parents=True, exist_ok=True)
+    nvcc = _build._nvcc()
+    objs = []
+    procs = []
+    for fname, text in sources.items():
+        (d / fname).write_text(text)
+        objs.append(d / f"{Path(fname).stem}.o")
+        procs.append(subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-I", str(include), "-c", "-o",
+             str(objs[-1]), str(d / fname)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for p in procs:
+        log = p.communicate()[0]
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+    subprocess.run([nvcc, *_build.ARCH, "-shared", "-o", str(d / "lib.so"),
+                    *map(str, objs)], check=True)
+    lib = ctypes.CDLL(str(d / "lib.so"))
+    for fn, args in (signatures or _build.SIGNATURES).items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def sass(obj: Path, pattern) -> dict:
+    """{key: instruction lines} of the kernels in `obj` whose name matches
+    pattern = (regex, the key's groups, the mode's group): those with the
+    mode's group "1" are left out."""
+    regex, keys, mode = pattern
+    cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
+    txt = subprocess.run([cuobjdump, "-sass", str(obj)], capture_output=True,
+                         text=True, check=True).stdout
+    out = {}
+    for block in txt.split("Function : ")[1:]:
+        m = re.search(regex, block.splitlines()[0])
+        if not m or m.group(mode) == "1":
+            continue
+        out[m.group(*keys)] = [
+            re.sub(r"/\*[0-9a-f]{4}\*/", "", ln).split(";")[0].strip()
+            for ln in block.splitlines() if re.search(r"/\*[0-9a-f]{4}\*/",
+                                                      ln)]
+    return out
+
+
+def compare_sass(what, pattern, base: Path, tree: Path):
+    sb, st = sass(base, pattern), sass(tree, pattern)
+    for key in sorted(sb):
+        print(f"[sass] {what} {key}: {len(sb[key])} instructions in base, "
+              f"{len(st.get(key, []))} in tree, identical "
+              f"{sb[key] == st.get(key)}", flush=True)
+
+
+def turns(calls: dict, order) -> dict:
+    """{name: [ms a call of each window]}, the windows taken in `order`."""
+    t = {k: [] for k in calls}
+    for k in order:
+        t[k].append(time_ms(calls[k], REPS))
+    return t
+
+
+def fmt(t: dict) -> str:
+    return ", ".join(f"{k} {min(v):.4f} ms (windows "
+                     f"{', '.join(f'{x:.4f}' for x in v)})"
+                     for k, v in t.items())
+
+
+class Fields:
+    """Random fields at SHAPE on the card, every leg of the adjacency set;
+    K1's, K1e's and K7's grid pass's calls on them from a library."""
+
+    def __init__(self, dtype):
+        g = torch.Generator(device="cuda").manual_seed(0)
+        r = lambda: torch.randn(SHAPE, generator=g, device="cuda",
+                                dtype=dtype)
+        self.code = 0 if dtype == torch.float32 else 1
+        self.u0, self.u1, self.out, self.Lu = r(), r(), r(), r()
+        self.adj = torch.full(SHAPE, 4095, dtype=torch.uint16, device="cuda")
+        Nx, Ny, Nz = SHAPE
+        blocks = -(-(Nz - 2) // 128) * (Ny - 2) * (Nx - 2)
+        self.part = torch.zeros(2 * blocks + 2048, dtype=torch.float64,
+                                device="cuda")
+        self.stream = torch.cuda.current_stream().cuda_stream
+
+    def k1(self, lib):
+        p = lambda t: t.data_ptr()
+        return lambda: _build.check(lib.pf_stencil_step(
+            self.code, 12, p(self.u0), p(self.u1), p(self.adj), p(self.out),
+            *SHAPE, 1, 0.25, 3.0, 0.57, 1.14, 1.71, self.stream), "K1")
+
+    def k1e(self, lib):
+        p = lambda t: t.data_ptr()
+        return lambda: _build.check(lib.pf_stencil_energy_step(
+            self.code, 12, p(self.u0), p(self.u1), p(self.adj), p(self.out),
+            p(self.Lu), p(self.part), self.part.numel(), *SHAPE, 1, 0.25,
+            3.0, 0.57, 1.14, 1.71, 0.1, 1.3, self.stream), "K1e")
+
+    def grid_pass(self, lib):
+        p = lambda t: t.data_ptr()
+        return lambda: _build.check(lib.pf_energy_grid(
+            self.code, 12, p(self.u0), p(self.u1), p(self.adj), p(self.Lu),
+            p(self.part), self.part.numel(), *SHAPE, 1, 0.1, 1.3,
+            self.stream), "K7 grid pass")
+
+
+def k1_sources(d: Path) -> dict:
+    """K1's sources in the directory d: stencil.cu, and energy.cu where it
+    exists."""
+    return {f: (d / f).read_text() for f in ("stencil.cu", "energy.cu")
+            if (d / f).exists()}
+
+
+def probe_k1(base: Path):
+    libs = {"base": build_lib("k1_base", k1_sources(base), base),
+            "tree": build_lib("k1_tree", k1_sources(_build.CSRC),
+                              _build.CSRC)}
+    compare_sass("K1/K5 (dtype, adj, legs, shard)", K1_SASS,
+                 PROBE / "k1_base" / "stencil.o",
+                 PROBE / "k1_tree" / "stencil.o")
+    for dt in (torch.float32, torch.float64):
+        f = Fields(dt)
+        calls = {k: f.k1(lib) for k, lib in libs.items()}
+        print(f"[base] K1 {dt} FCC {SHAPE}: "
+              + fmt(turns(calls, IN_TURNS)), flush=True)
+        del f
+
+
+def _k2_engine(dtype, open_top=False):
+    from pffdtd_tpu_torch.bench import DEF11
+    from pffdtd_tpu_torch.engine.torch_engine import TorchEngine
+    from pffdtd_tpu_torch.scene import (fold_fcc_sim, rotate_sim, sort_sim,
+                                        synthetic_box_sim)
+
+    sim = synthetic_box_sim(36.0, 28.0, 23.0, h=0.046, Nt=8, fcc=True,
+                            lossy=True, insig_type="impulse", DEF=DEF11,
+                            open_top=open_top)
+    sim = sort_sim(fold_fcc_sim(rotate_sim(sim, orient="descending")))
+    return TorchEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
+                       mats=sim.mats, dtype=dtype, device="cuda")
+
+
+class _K2State:
+    """A seeded random state for K2 on `eng`'s nodes, and K2's calls."""
+
+    def __init__(self, eng):
+        from pffdtd_tpu_torch.io.simdata import MMb
+
+        g = torch.Generator(device="cuda").manual_seed(0)
+        d = eng.data
+        r = lambda *s: torch.randn(s, generator=g, device="cuda",
+                                   dtype=eng.dtype)
+        self.eng = eng
+        self.u0, self.un = r(*d.grid.shape), r(*d.grid.shape)
+        self.vh, self.gh = r(MMb, d.Nbl), r(MMb, d.Nbl)
+
+    def call(self, lib, abc_mode=False, bufs=None):
+        """K2 of `lib` on bufs (default this state's, updated in place)."""
+        from pffdtd_tpu_torch.kernels.boundary import abc_lq
+
+        e, p = self.eng, (lambda t: t.data_ptr())
+        x, vh, gh = bufs or (self.un, self.vh, self.gh)
+        args = [0 if e.dtype == torch.float32 else 1, p(x), p(self.u0),
+                p(e.bnl), p(e.ssaf), p(e.mat), p(e.coef_table), p(e.beta),
+                p(vh), p(gh), e.data.Nbl, e.data.sc.l, e.data.sc.lo2]
+        if lib.abc:
+            args += [p(e.abcq) if abc_mode else None,
+                     *abc_lq(e.data.sc, e.dtype)]
+        stream = torch.cuda.current_stream().cuda_stream
+        return lambda: _build.check(lib.pf_boundary_update(*args, stream),
+                                    "K2")
+
+
+def _k2_lib(name, d: Path):
+    src = (d / "boundary.cu").read_text()
+    abc = "abcq" in src
+    sig = None if abc else {"pf_boundary_update": K2_BASE_ARGS}
+    lib = build_lib(name, {"boundary.cu": src}, d, sig)
+    lib.abc = abc
+    return lib
+
+
+def probe_k2(base: Path):
+    libs = {"base": _k2_lib("k2_base", base),
+            "tree": _k2_lib("k2_tree", _build.CSRC)}
+    compare_sass("K2 without the ABC mode (dtype)", K2_SASS,
+                 PROBE / "k2_base" / "boundary.o",
+                 PROBE / "k2_tree" / "boundary.o")
+    for dtype in (np.float32, np.float64):
+        s = _K2State(_k2_engine(dtype))
+        outs = []
+        for lib in libs.values():
+            bufs = (s.un.clone(), s.vh.clone(), s.gh.clone())
+            s.call(lib, bufs=bufs)()
+            outs.append(bufs)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*outs))
+        calls = {k: s.call(lib) for k, lib in libs.items()}
+        print(f"[base] K2 {np.dtype(dtype).name} headline "
+              f"({s.eng.data.Nbl} nodes): bitwise equal {same}; "
+              + fmt(turns(calls, IN_TURNS)), flush=True)
+        del s
+        torch.cuda.empty_cache()
+    s = _K2State(_k2_engine(np.float32, open_top=True))
+    calls = {"ABC mode": s.call(libs["tree"], abc_mode=True),
+             "without": s.call(libs["tree"])}
+    order = ("without", "ABC mode", "ABC mode", "without") * 2
+    print(f"[abc] K2 float32, the open-top headline box "
+          f"({int((s.eng.abcq > 0).sum())} of {s.eng.data.Nbl} nodes on an "
+          f"ABC layer): " + fmt(turns(calls, order)), flush=True)
+
+
+PROBES = {"K1": probe_k1, "K2": probe_k2}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--base", type=Path, required=True,
+                    help="a directory holding another checkout's csrc "
+                    "files")
+    ap.add_argument("--kernels", default="K1,K2",
+                    help="the kernels to compare, of " + ",".join(PROBES))
+    args = ap.parse_args(argv)
+    names = args.kernels.split(",")
+    if not set(names) <= set(PROBES):
+        ap.error(f"--kernels {args.kernels}: of {','.join(PROBES)}")
+    if not torch.cuda.is_available():
+        raise SystemExit("the probe measures on an NVIDIA card only")
+    card_line()
+    for k in names:
+        PROBES[k](args.base)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -33,12 +33,8 @@ import numpy as np
 import torch
 
 from pffdtd_tpu_torch.kernels import _build
+from pffdtd_tpu_torch.utils import as_dtype
 from pffdtd_tpu_torch.voxelizer.vox import CART_VECTORS, FCC_VECTORS
-
-
-def _as_dtype(x: float, dt: torch.dtype) -> float:
-    """x rounded to the working precision, as a Python float."""
-    return float(np.float32(x)) if dt == torch.float32 else float(x)
 
 
 def abc_regions(grid):
@@ -267,8 +263,8 @@ def stencil_rows_plain(u0, u1, adj, out, grid, sc, xo, r0, r1):
 
     rows = (slice(r0, r1), slice(1, Ny - 1), slice(1, Nz - 1))
     acc, K = masked_legs(u1f, adj, grid, r0, r1)
-    sl2 = _as_dtype(sc.sl2, dt)
-    a2 = _as_dtype(sc.a2, dt)
+    sl2 = as_dtype(sc.sl2, dt)
+    a2 = as_dtype(sc.a2, dt)
     out[rows] = (2.0 - sl2 * K) * u1f[rows] - u0[rows] + a2 * acc
     del acc, K, u1f
     for (ix, iy, iz), Q in abc_regions(grid):
@@ -276,7 +272,7 @@ def stencil_rows_plain(u0, u1, adj, out, grid, sc, xo, r0, r1):
         if lx is None:
             continue
         sl = (lx, iy, iz)
-        lQ = _as_dtype(sc.l * Q, dt)
+        lQ = as_dtype(sc.l * Q, dt)
         # a tensor divisor: PyTorch's CUDA division by a Python scalar
         # multiplies by its reciprocal, which rounds differently from K1
         den = torch.full((), 1.0 + lQ, dtype=dt, device=out.device)

@@ -16,7 +16,9 @@ Routes, as `TorchEngine`'s (`pick_route`):
 - **step** (G = 1 ghost row a side).  Per step: copy one plane of u^n each
   way into the neighbours' ghost rows; per slab, read its owned receivers,
   run K5 (`stencil_step_shard`, K1 on the owned rows), K2 on its owned
-  lossy nodes and add its owned sources (`index_add_`).
+  lossy nodes and add its owned sources (`index_add_`).  Lossy nodes on an
+  ABC layer take K2's ABC mode, their Q from the global grid, as on
+  `TorchEngine`'s step route; the tb and pair routes refuse such scenes.
 - **tb** / **pair** (G = TB).  Per sweep: copy TB planes of u^{n-1} and of
   u^n each way; per slab, one K6 sweep (`tb_sweep_shard`) that recomputes
   the ghost bands' points, lossy nodes and sources as its halo ring; then
@@ -41,8 +43,9 @@ import numpy as np
 import torch
 
 from pffdtd_tpu_torch.convert import slabs_to_global
-from pffdtd_tpu_torch.engine.data import EngineData, abc_layer_mask
-from pffdtd_tpu_torch.engine.torch_engine import _TORCH_DTYPE, pick_route
+from pffdtd_tpu_torch.engine.data import EngineData
+from pffdtd_tpu_torch.engine.torch_engine import _TORCH_DTYPE, abc_refusal, \
+    pick_route
 from pffdtd_tpu_torch.io.simdata import MMb, SimData, read_sim_folder, \
     write_outputs
 from pffdtd_tpu_torch.kernels.boundary import boundary_update, \
@@ -99,6 +102,10 @@ class _Slab:
         self.mat = up(data.mat_bnl[part.nodes])
         self.coef_table = up(data.coef_table)
         self.beta = up(data.beta)
+        # Q of the slab's lossy nodes on an ABC layer, from the global grid
+        # (the x faces are the global edge rows), or None when it has none
+        q = None if data.abcq_bnl is None else data.abcq_bnl[part.nodes]
+        self.abcq = up(q) if q is not None and q.any() else None
         self.src_own = up(part.src_loc[part.src_own])
         self.rcv = up(part.rcv_loc)
         self.tb_scene = None
@@ -135,10 +142,9 @@ class ShardedTorchEngine:
         if S < 2 * G:
             raise ValueError(f"{D} slabs of {S} rows: the {self.backend} "
                              f"route needs >= {2 * G} rows a slab")
-        if d.Nbl and abc_layer_mask(d.bnl_ixyz, d.grid).any():
-            raise ValueError("a lossy boundary node lies on an ABC layer: "
-                             "the kernels apply the ABC before the lossy "
-                             "update, which is exact only off those layers")
+        if d.abcq_bnl is not None and self.TB is not None:
+            raise ValueError(abc_refusal(f"x-slab {self.backend} "
+                                         f"TB={self.TB}"))
         parts = partition(d, self.slabs)
         self.shards = [_Slab(p, d, dev, self.TB)
                        for p, dev in zip(parts, self.devices)]
@@ -202,7 +208,7 @@ class ShardedTorchEngine:
                 k5(u0, u1, sh.adj, u2, sh.slab, d.sc)
                 if sh.bnl.numel():
                     k2(u2, u0, sh.bnl, sh.ssaf, sh.mat, sh.coef_table,
-                       sh.beta, b[0], b[1], d.sc)
+                       sh.beta, b[0], b[1], d.sc, sh.abcq)
                 u2.view(-1).index_add_(0, sh.src_own, sig[0][n])
             st[:3] = [u1, u2, u0]
         return states

@@ -118,12 +118,18 @@ def make_sloped_room(Lx=2.0, Ly=3.0, Lz1=1.6, Lz2=2.5, Sxyz=None,
 def synthetic_box_sim(Lx=8.0, Ly=6.0, Lz=5.0, h=0.02, duration=None, Nt=None,
                       fcc=False, lossy=True, Tc=20.0, rh=50.0,
                       insig_type="impulse", diff_source=None,
+                      pad_x_to: int | None = None,
                       DEF: np.ndarray | None = None,
+                      open_top: bool = False,
                       Rxyz: np.ndarray | None = None) -> SimData:
     """Analytic axis-aligned box sim data at arbitrary scale.
 
     A leg from an in-room grid point is cut iff the neighbour leaves the
     open box (0,Lx)x(0,Ly)x(0,Lz); for FCC only even-parity points count.
+    pad_x_to appends air rows past the high-x wall until Nx is a multiple
+    of it.  open_top=True removes the z = Lz wall: the field escapes through
+    the opening into the Engquist-Majda ABCs, and the side walls' lossy
+    nodes reach the top ABC layer.
     Rxyz (Nr, 3) replaces the two default receiver positions (an addition
     of the port, for runs too short to reach the defaults).
     """
@@ -131,6 +137,13 @@ def synthetic_box_sim(Lx=8.0, Ly=6.0, Lz=5.0, h=0.02, duration=None, Nt=None,
     cg = CartGrid(h=h, offset=3.5, bmin=np.zeros(3),
                   bmax=np.array([Lx, Ly, Lz]), fcc=fcc)
     Nx, Ny, Nz = cg.Nx, cg.Ny, cg.Nz
+    if pad_x_to and Nx % pad_x_to:
+        add = pad_x_to - Nx % pad_x_to
+        Nx += add
+        cg.xv = np.r_[cg.xv, cg.xv[-1] + h * np.arange(1, add + 1)]
+        cg.Nx = Nx
+        cg.Nxyz = np.array([Nx, Ny, Nz])
+        cg.Npts = int(Nx * Ny * Nz)
     VV = (FCC_VECTORS if fcc else CART_VECTORS).astype(np.int64)
     NN = VV.shape[0]
 
@@ -138,7 +151,7 @@ def synthetic_box_sim(Lx=8.0, Ly=6.0, Lz=5.0, h=0.02, duration=None, Nt=None,
     xv, yv, zv = cg.xv, cg.yv, cg.zv
     inx = (xv > eps) & (xv < Lx - eps)
     iny = (yv > eps) & (yv < Ly - eps)
-    inz = (zv > eps) & (zv < Lz - eps)
+    inz = (zv > eps) & ((zv < Lz - eps) | open_top)
 
     # candidates: points within one step of a wall plane (either side),
     # excluding the outermost grid layer
@@ -168,7 +181,7 @@ def synthetic_box_sim(Lx=8.0, Ly=6.0, Lz=5.0, h=0.02, duration=None, Nt=None,
             qx, qy, qz = px + dx * h, py + dy * h, pz + dz * h
             inside_q = ((qx > eps) & (qx < Lx - eps)
                         & (qy > eps) & (qy < Ly - eps)
-                        & (qz > eps) & (qz < Lz - eps))
+                        & (qz > eps) & ((qz < Lz - eps) | open_top))
             adj[:, k] = inside_p == inside_q
         is_bn = (~adj).any(-1)
         if not is_bn.any():

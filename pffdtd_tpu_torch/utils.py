@@ -1,11 +1,13 @@
 """Small helpers: copies of `iceil`, `iround`, `ind2sub3d`, `sub2ind3d`
 (row-major x, y, z with z contiguous), `rel_diff`, the geometry helpers
 (`dotv`, `vecnorm`, `normalise`, `rotate_xyz_deg`, `rotate_az_el_deg`),
-`wavwrite`, `wavread` and `TimerDict` from pffdtd_tpu/utils/__init__.py."""
+`wavwrite`, `wavread` and `TimerDict` from pffdtd_tpu/utils/__init__.py;
+and `as_dtype`, a constant rounded as the kernels round it."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def iceil(x) -> np.int_:
@@ -28,6 +30,11 @@ def ind2sub3d(ii, Nx, Ny, Nz):
 def sub2ind3d(ix, iy, iz, Nx, Ny, Nz):
     """(ix, iy, iz) -> linear index with z contiguous."""
     return (np.asarray(ix) * Ny + np.asarray(iy)) * Nz + np.asarray(iz)
+
+
+def as_dtype(x: float, dt: torch.dtype) -> float:
+    """x rounded to the working precision dt, as a Python float."""
+    return float(np.float32(x)) if dt == torch.float32 else float(x)
 
 
 def rel_diff(x0, x1):

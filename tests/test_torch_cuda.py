@@ -28,6 +28,9 @@ grid pass, K1, K2 and K7's boundary pass, and its resume bitwise equal to
 the uninterrupted run; K8 (the modal recurrence) <= 1e-12 of its numpy loop
 and of its design's plain version (`modal_split_plain`), its loop modes
 bitwise equal to the numpy loop.
+K2's ABC mode (lossy nodes on an ABC layer, an open-top box) bitwise
+equal to its plain version, and the open-top box's kernel path within
+1e-12 of its plain path in fp64.
 Beside the kernels: the energy route (K1 + K2 + K7) against the plain
 path, a resume at a step that is no multiple of TB, and the modal filter
 on the card against its numpy loop, <= 1e-12.
@@ -131,6 +134,49 @@ def test_kernels_match_plain_one_call(cuda, name, dtype):
     assert boundary_update.launches == n2 + 1
     for x, y in ((b, b2), (vh, vh2), (gh, gh2)):
         assert _rel(x, y) <= TOL[dtype]
+
+
+def _open_top_engine(fcc, dtype, **kw):
+    """An open-top lossy box: its side walls' lossy nodes reach the top
+    ABC layer, so K2 runs in its ABC mode."""
+    sim = synthetic_box_sim(1.2, 1.0, 0.9, h=0.1 if fcc else 0.08, Nt=64,
+                            fcc=fcc, lossy=True, insig_type="hann10",
+                            diff_source=False, open_top=True)
+    if fcc:
+        sim = sort_sim(fold_fcc_sim(sim))
+    return TorchEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
+                       mats=sim.mats, dtype=dtype, device="cuda", **kw)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("fcc", [False, True])
+def test_k2_abc_mode_matches_plain_bitwise(cuda, fcc, dtype):
+    eng = _open_top_engine(fcc, dtype)
+    d = eng.data
+    assert eng.abcq is not None and int((eng.abcq > 0).sum()) > 0
+    rng = np.random.default_rng(1)
+    t = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(dtype)).to(cuda)
+    u0, un, vh, gh = t(*d.grid.shape), t(*d.grid.shape), t(MMb, d.Nbl), \
+        t(MMb, d.Nbl)
+    k2 = (eng.bnl, eng.ssaf, eng.mat, eng.coef_table, eng.beta)
+    a, va, ga = un.clone(), vh.clone(), gh.clone()
+    n2 = boundary_update.launches
+    boundary_update(a, u0, *k2, va, ga, d.sc, eng.abcq)
+    boundary_update_plain(un, u0, *k2, vh, gh, d.sc, eng.abcq)
+    torch.cuda.synchronize()
+    assert boundary_update.launches == n2 + 1
+    for x, y in ((a, un), (va, vh), (ga, gh)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("fcc", [False, True])
+def test_open_top_kernel_path_matches_plain_path_fp64(cuda, fcc):
+    uk = _open_top_engine(fcc, np.float64).run(verbose=False)
+    up = _open_top_engine(fcc, np.float64,
+                          use_kernels=False).run(verbose=False)
+    assert np.abs(up).max() > 0
+    assert np.abs(uk - up).max() / np.abs(up).max() <= 1e-12
 
 
 @pytest.mark.parametrize("name", list(CASES))

@@ -35,7 +35,7 @@ from pffdtd_tpu_torch import comms, consts, scene, utils
 from pffdtd_tpu_torch.engine import coeffs
 from pffdtd_tpu_torch.io import h5, simdata
 from pffdtd_tpu_torch.voxelizer import grid, vox
-from pffdtd_tpu_torch.engine.data import EngineData, abc_layer_mask
+from pffdtd_tpu_torch.engine.data import EngineData, abc_q
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parent.parent
@@ -127,9 +127,9 @@ def test_engine_data_equal(name, dtype):
         np.testing.assert_array_equal(d.coef_table[d.mat_bnl, q],
                                       j.mat_rows[k], err_msg=k)
     np.testing.assert_array_equal(d.beta[d.mat_bnl], j.mat_rows["beta"])
-    # K1 applies the ABC before K2's lossy update: exact only because no
-    # lossy node lies on an ABC layer
-    assert not abc_layer_mask(d.bnl_ixyz, d.grid).any()
+    # a closed box puts no lossy node on an ABC layer: K2 runs without its
+    # ABC mode
+    assert not abc_q(d.bnl_ixyz, d.grid).any() and d.abcq_bnl is None
 
 
 def test_rotate_auto_is_refused():
@@ -155,6 +155,7 @@ import chip_smoke
 import pffdtd_tpu_torch.analysis.air_abs
 import pffdtd_tpu_torch.analysis.modal_accuracy
 import pffdtd_tpu_torch.analysis.process_outputs
+import pffdtd_tpu_torch.bench
 import pffdtd_tpu_torch.cli
 import pffdtd_tpu_torch.convert
 import pffdtd_tpu_torch.engine.energy
@@ -162,6 +163,7 @@ import pffdtd_tpu_torch.engine.torch_engine
 import pffdtd_tpu_torch.viz
 import pffdtd_tpu_torch.io.h5
 import pffdtd_tpu_torch.kernels.k1e_probe
+import pffdtd_tpu_torch.kernels.probe
 import pffdtd_tpu_torch.kernels.stream
 import pffdtd_tpu_torch.kernels.tb
 import pffdtd_tpu_torch.parallel.partition
