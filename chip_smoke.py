@@ -21,10 +21,13 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    summation order: the kernels are built without FMA contraction; K2's
    plain version adds the branches in the kernel's order, so K2 reads 0).  K2's
    time at the headline (no lossy node on an ABC layer: K2 as it was)
-   beside its time before the ABC mode (PERF.md's kernel table); K2's ABC mode on the headline box without its
-   top wall (its side walls' lossy nodes reach the top ABC layer), bitwise
-   equal to its plain version, timed beside K2 without the mode on the
-   same inputs.  K3, one
+   beside its time before the ABC mode (PERF.md's kernel table).  The ABC
+   modes on the headline box without its top wall (its side walls' lossy
+   nodes reach the top ABC layer), each timed beside the kernel without the
+   mode on the same inputs (K3 and K6 in turns: without, ABC mode, ABC
+   mode, without, twice): K2 and K3 (TB = 3) bitwise equal to their plain
+   versions, K6 (TB = 3, slab 1 of 4) <= 1e-5 of each output's largest
+   magnitude.  K3, one
    sweep of every TB = 2..8 (fields, vh/gh, taps): <= 1e-5 of the largest
    magnitude of each output, each timed (ms per sweep and per step: the
    TB scan; TB = 2 and 3 over 20 sweeps, the deeper ones over 3).  K7's
@@ -50,8 +53,17 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    layer: K1 and K2 (its ABC mode) vs their plain versions <= 1e-12 and K2
    bitwise, the step route vs the plain path and the x-slab step route at
    D = 2 vs the single device on the same padded grid <= 1e-12 (64 steps),
-   launches checked; the tb, pair and energy routes, and the x-slab tb and
-   pair routes, must refuse them, naming the step route.  Then a lossy
+   launches checked; K3 in its ABC mode at TB = 2, 3 and 8 and K6 at TB =
+   2 and 3 (both slabs of D = 2), one sweep each from a random state,
+   bitwise equal to their plain versions; the tb (TB = 3 and 8) and pair
+   routes' receivers bitwise equal to the step route's, the x-slab tb and
+   pair routes' to the single device's step route on the padded grid,
+   launches checked; the energy route (K1e + K2's ABC mode + K7) with
+   launches checked, its H_tot, E_lost and E_in <= 1e-12 of their largest
+   magnitude against its plain path and its receivers bitwise equal to the
+   energy-off run, its balance printed and not held under 1e-10 (the
+   reference's functional has no term for a lossy node on an ABC layer).
+   Then a lossy
    Cartesian box and a lossy FCC box, unfolded and folded.  The single-step route, and the
    TB = 3 and pair (TB = 2) routes over 29 steps (not a multiple of TB, so
    the tail steps run), vs the plain single-step path: receivers <= 1e-12;
@@ -66,7 +78,10 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    launch counts checked; then the plain path, whose receivers every route
    must match to <= 1e-5 of max |u_out|.  Two receivers sit 1.6 m from the
    source: the bench's default positions lie beyond the 5.9 m that 128 steps
-   can reach, and would read exact zeros.
+   can reach, and would read exact zeros.  Then the headline box without
+   its top wall (phase 2's) on the tb route (TB = 3: 42 K3 sweeps in the
+   ABC mode + 2 single steps) and on the step route, launches checked,
+   receivers bitwise equal.
 5. The x-slab path at full size: the headline scene through
    make_sharded_engine with every slab on cuda:0 (the halo exchange is then
    a copy on the card): D = 4 on the step, pair and tb (TB = 3) routes and
@@ -176,8 +191,9 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    roof K4 alone; over the bench, K1-K7 and K1e each launched.  Its line,
    its seconds and its launches are printed; each kernel's total goes into
    the kernels' record as `launches_bench`.
-The last two lines are the kernels' JSON record (K2's row carries its ABC
-mode's time, bound and launches under "abc_mode") and
+The last two lines are the kernels' JSON record (the rows of K2, K3 and K6
+carry their ABC modes' times on the open-top headline box, beside the
+kernel without the mode, bound and launches under "abc_mode") and
 {"ok": true, "device": {...}}.  The work sits under `__main__`, so importing
 this file runs nothing.
 """
@@ -474,48 +490,46 @@ def k2_abc_check(eng, gen, timing_reps=0):
                     timing_reps))
 
 
-def require_abc_refusals(sim, name):
-    """The TB routes and the energy route refuse a scene with lossy nodes
-    on an ABC layer, naming the step route; so do the x-slab TB routes."""
-    for kw in ({"backend": "tb", "tb": 3}, {"backend": "pair"},
-               {"energy_on": True}):
-        try:
-            engine(sim, np.float64, **kw)
-        except ValueError as e:
-            require("the step route" in str(e), f"{name} {kw}: {e}")
-        else:
-            raise SmokeFailure(f"{name} {kw}: the route took a scene with "
-                               "lossy nodes on an ABC layer")
-    for backend in ("tb", "pair"):
-        try:
-            sharded(sim, np.float64, 2, backend=backend)
-        except ValueError as e:
-            require("the step route" in str(e), f"{name} x2 {backend}: {e}")
-        else:
-            raise SmokeFailure(f"{name} x2 {backend}: the route took a "
-                               "scene with lossy nodes on an ABC layer")
+def sweep_buffers(u0, vh, TB, nr):
+    """Zeroed outputs of one sweep: out0, out1; vh_out, gh_out; the taps."""
+    o = [torch.zeros_like(u0) for _ in range(2)]
+    s = [torch.zeros_like(vh) for _ in range(2)]
+    taps = (torch.zeros((TB - 2, nr), dtype=u0.dtype, device=u0.device)
+            if TB > 2 else None)
+    return o, s, taps
 
 
-def tb_check(eng, gen, timing_reps=0, plain_reps=2):
+ABC_TURNS = ("without", "ABC mode", "ABC mode", "without") * 2
+
+
+def abc_turns(sweep, st, reps):
+    """K3 or K6 in its ABC mode (`sweep(st)`, st with a Q array) and
+    without it on the same inputs (st without its Q array), windows of
+    `reps` sweeps taken in turns (ABC_TURNS): {mode: [ms a sweep of each
+    window]}."""
+    require(st.abcq is not None, "abc_turns: the scene has no Q array")
+    scenes = {"ABC mode": st, "without": dataclasses.replace(st, abcq=None)}
+    t = {k: [] for k in scenes}
+    for k in ABC_TURNS:
+        t[k].append(time_ms(lambda: sweep(scenes[k]), reps))
+    return t
+
+
+def tb_check(eng, gen, timing_reps=0, plain_reps=2, abc=False):
     """One K3 sweep vs tb_sweep_plain from a random state (fields, vh/gh,
     source samples).  Returns (max rel err over the outputs, max abs err,
     kernel ms, plain ms or None when plain_reps is 0); each output's error
-    is relative to its own largest magnitude."""
+    is relative to its own largest magnitude.  abc: the scene has a Q array,
+    and `abc_turns`' windows (of timing_reps sweeps) follow as a fifth
+    item."""
     st, d = eng.tb_scene, eng.data
     TB = st.TB
     u0, u1, vh, gh = random_state(eng, gen)
     sig = torch.randn((TB, d.in_ixyz.size), generator=gen,
                       device=eng.device, dtype=eng.dtype)
     nr = d.out_ixyz.size
-
-    def buffers():
-        o = [torch.zeros_like(u0) for _ in range(2)]
-        s = [torch.zeros_like(vh) for _ in range(2)]
-        taps = (torch.zeros((TB - 2, nr), dtype=eng.dtype, device=eng.device)
-                if TB > 2 else None)
-        return o, s, taps
-
-    (ok_, sk, tk), (op, sp, tp) = buffers(), buffers()
+    (ok_, sk, tk), (op, sp, tp) = (sweep_buffers(u0, vh, TB, nr)
+                                   for _ in range(2))
     tb_sweep(st, u0, u1, *ok_, vh, gh, *sk, sig, tk)
     tb_sweep_plain(st, u0, u1, *op, vh, gh, *sp, sig, tp)
     torch.cuda.synchronize()
@@ -530,7 +544,11 @@ def tb_check(eng, gen, timing_reps=0, plain_reps=2):
              time_ms(lambda: tb_sweep_plain(st, u0, u1, *op, vh, gh, *sp,
                                             sig, tp), plain_reps)
              if plain_reps else None)
-    return (max(e[0] for e in errs), max(e[1] for e in errs)) + t
+    r = (max(e[0] for e in errs), max(e[1] for e in errs)) + t
+    if not abc:
+        return r
+    return r + (abc_turns(lambda sc: tb_sweep(sc, u0, u1, *ok_, vh, gh, *sk,
+                                              sig, tk), st, timing_reps),)
 
 
 def scene_engine(eng, TB):
@@ -542,7 +560,8 @@ def scene_engine(eng, TB):
         tb_scene=TBScene.make(eng.data, TB, adj=st.adj, bnl=st.bnl,
                               ssaf=st.ssaf, mat=st.mat,
                               coef_table=st.coef_table, beta=st.beta,
-                              in_ixyz=st.in_ixyz, out_ixyz_f=st.out_ixyz_f))
+                              in_ixyz=st.in_ixyz, out_ixyz_f=st.out_ixyz_f,
+                              abcq=st.abcq))
 
 
 def randn(gen, dtype, *shape):
@@ -570,7 +589,7 @@ def k5_check(eng, gen, k, timing_reps=0):
     return rel(outk[own], outp[own]) + t
 
 
-def k6_check(eng, gen, k, timing_reps=0):
+def k6_check(eng, gen, k, timing_reps=0, abc=False):
     """One K6 sweep vs tb_sweep_shard_plain on slab k from a random state
     (owned rows of both fields, owned nodes' vh/gh, taps); as tb_check."""
     sh = eng.shards[k]
@@ -580,15 +599,8 @@ def k6_check(eng, gen, k, timing_reps=0):
     vh, gh = randn(gen, dt, MMb, nbl), randn(gen, dt, MMb, nbl)
     sig = randn(gen, dt, TB, st.in_ixyz.numel())
     nr = st.out_ixyz_f.numel()
-
-    def buffers():
-        o = [torch.zeros_like(u0) for _ in range(2)]
-        s = [torch.zeros_like(vh) for _ in range(2)]
-        taps = torch.zeros((TB - 2, nr), dtype=dt, device=u0.device) \
-            if TB > 2 else None
-        return o, s, taps
-
-    (ok_, sk, tk), (op, sp, tp) = buffers(), buffers()
+    (ok_, sk, tk), (op, sp, tp) = (sweep_buffers(u0, vh, TB, nr)
+                                   for _ in range(2))
     tb_sweep_shard(st, u0, u1, *ok_, vh, gh, *sk, sig, tk)
     tb_sweep_shard_plain(st, u0, u1, *op, vh, gh, *sp, sig, tp)
     torch.cuda.synchronize()
@@ -606,7 +618,12 @@ def k6_check(eng, gen, k, timing_reps=0):
                                             sig, tk), timing_reps),
              time_ms(lambda: tb_sweep_shard_plain(st, u0, u1, *op, vh, gh,
                                                   *sp, sig, tp), 2))
-    return (max(e[0] for e in errs), max(e[1] for e in errs)) + t
+    r = (max(e[0] for e in errs), max(e[1] for e in errs)) + t
+    if not abc:
+        return r
+    return r + (abc_turns(lambda sc: tb_sweep_shard(sc, u0, u1, *ok_, vh, gh,
+                                                    *sk, sig, tk),
+                          st, timing_reps),)
 
 
 def energy_inputs(es, gen, dt):
@@ -900,7 +917,8 @@ def bound_ms(nbytes, nops=0.0, fp64=False):
 def slab_bytes_ops(eng, k):
     """Bytes a K5 call (route step) or a K6 sweep (route tb) on slab k must
     move, each input read once and each output written once, and its
-    floating-point operations (29 a stencil point, 80 a lossy node)."""
+    floating-point operations (29 a stencil point, 80 a lossy node); the
+    Q array's byte a node where the slab has one."""
     sh = eng.shards[k]
     sl, isz = sh.slab, eng.data.dtype.itemsize
     asz = sh.adj.element_size()
@@ -916,7 +934,8 @@ def slab_bytes_ops(eng, k):
     n_in, n_own = sh.bnl.numel(), int(sh.part.node_own.sum())
     nbytes = (plane * ((xh - xl) * isz + rows[0] * (isz + asz) + 2 * S * isz)
               + n_in * (2 * MMb * isz + isz + 4) + n_own * 2 * MMb * isz
-              + 4 * (st.tl_rptr.numel() + 3 * st.tl_node.numel()))
+              + 4 * (st.tl_rptr.numel() + 3 * st.tl_node.numel())
+              + (0 if st.abcq is None else n_in))
     node_x = sh.part.bnl // (sl.shape[1] * sl.shape[2])
     nodes = sum(int(((node_x >= max(xa - TB + 1 + s, xl))
                      & (node_x < min(xb + TB - 1 - s, xh))).sum())
@@ -938,7 +957,7 @@ def phase5(sim, gen, single, roof, configs=SHARDED, cards=False):
         key = (backend, ps.vox.Nx)
         if key not in single:      # the single-device run on this grid
             e1 = engine(ps, np.float32, backend=backend, **kw)
-            u1, t1, _ = run_route(e1, counts_of(e1, 1, e1.data.grid))
+            u1, t1, _ = run_route(e1, counts_of(e1, 1))
             single[key] = (u1, t1, e1.data.grid)
             del e1
             torch.cuda.empty_cache()
@@ -969,7 +988,7 @@ def phase5(sim, gen, single, roof, configs=SHARDED, cards=False):
                         f"{what} fp32 slab {k} disagrees: {r[0]}")
         for dv in used:    # the run's peak, not the checks' temporaries
             torch.cuda.reset_peak_memory_stats(dv)
-        u, t, c = run_route(es, counts_of(es, D, g))
+        u, t, c = run_route(es, counts_of(es, D))
         es.run(nt=NT, verbose=False, time_exchange=True)
         x_ms = es.exchange_ms / NT
         peak = max(torch.cuda.max_memory_allocated(dv) - base[dv]
@@ -1014,18 +1033,30 @@ def phase5(sim, gen, single, roof, configs=SHARDED, cards=False):
     return rows
 
 
-def counts_of(eng, D, g):
-    """The launches (a counts() tuple) one NT-step run of `eng` must
+def counts_of(eng, D, nt=NT):
+    """The launches (a counts() tuple) one nt-step run of `eng` must
     make."""
     TB = eng.TB
     if D == 1 and TB is None:
-        return launches(K1=NT, K2=NT)
+        return launches(K1=nt, K2=nt)
     if D == 1:
-        return launches(K1=NT % TB, K2=NT % TB, K3=NT // TB)
+        return launches(K1=nt % TB, K2=nt % TB, K3=nt // TB)
     if TB is None:
-        return launches(K2=D * NT, K5=D * NT)
-    return launches(K2=D * (NT % TB), K5=D * (NT % TB),
-                    K6=D * (NT // TB))
+        return launches(K2=D * nt, K5=D * nt)
+    return launches(K2=D * (nt % TB), K5=D * (nt % TB),
+                    K6=D * (nt // TB))
+
+
+def k3_bytes(e):
+    """Bytes a K3 sweep of the tb engine e must move, each input read once
+    and each output written once: the fields and adj an interior point, the
+    branch states, the tile lists, and the Q array where it has one."""
+    d, isz = e.data, e.data.dtype.itemsize
+    tl = e.tb_scene.lists
+    return (d.grid.n_interior * (4 * isz + e.adj.element_size())
+            + d.Nbl * (4 * MMb * isz + isz + 4)
+            + 4 * (tl.rptr.size + 3 * tl.node.size)
+            + (0 if e.tb_scene.abcq is None else d.Nbl))
 
 
 def energy_rows_equal(a, b):
@@ -1791,13 +1822,16 @@ def main():
           f"was): {main_chk['K2'][2]:.4f} ms, before the ABC mode "
           f"{K2_PARENT_MS:.4f} ({100 * main_chk['K2'][2] / K2_PARENT_MS:.1f}"
           f"%)", flush=True)
-    # K2's ABC mode at the headline's size: the box without its top wall
-    eng_open = engine(headline_scene(NT, open_top=True), np.float32)
+    # the ABC modes at the headline's size: the box without its top wall,
+    # on the tb route (TB = 3), which phase 4 runs beside its step route
+    sim_open = headline_scene(NT, open_top=True)
+    eng_open = engine(sim_open, np.float32, backend="tb", tb=3)
     nflag, ms_abc, pms_abc, ms_off = k2_abc_check(eng_open, gen,
                                                   timing_reps=20)
     isz = eng_open.data.dtype.itemsize
     k2_abc = SimpleNamespace(
-        nbl=eng_open.data.Nbl, nflag=nflag, ms=ms_abc, plain_ms=pms_abc,
+        nbl=eng_open.data.Nbl, nflag=nflag, ms=ms_abc, off=ms_off,
+        plain_ms=pms_abc,
         nbytes=eng_open.data.Nbl * (4 * MMb * isz + 8 + isz + 4 + 3 * isz
                                     + 1))
     print(f"[2] K2 ABC mode, the open-top headline box ({nflag} of "
@@ -1805,8 +1839,34 @@ def main():
           f"plain version; {ms_abc:.4f} ms (without the mode on the same "
           f"inputs {ms_off:.4f}), plain {pms_abc:.4f} ms, "
           f"{k2_abc.nbytes / 1e6:.1f} MB", flush=True)
-    del eng_open
+    # K3 in its ABC mode (TB = 3) and K6 (TB = 3, slab 1 of 4) on the same
+    # box, each beside itself without the mode on the same inputs, in turns
+    r, a, _, pms, t = tb_check(eng_open, gen, timing_reps=20, abc=True)
+    require(a == 0.0, f"K3's ABC mode differs from its plain version: {a}")
+    k3_abc = SimpleNamespace(ms=min(t["ABC mode"]), off=min(t["without"]),
+                             plain_ms=pms, nbytes=k3_bytes(eng_open))
+    ex_open = sharded(sim_open, np.float32, 4, backend="tb", tb=3)
+    r6, a6, _, pms6, t6 = k6_check(ex_open, gen, 1, timing_reps=20,
+                                   abc=True)
+    require(r6 <= 1e-5, f"K6's ABC mode disagrees with its plain version: "
+            f"{r6}")
+    nb6, no6 = slab_bytes_ops(ex_open, 1)
+    k6_abc = SimpleNamespace(ms=min(t6["ABC mode"]), off=min(t6["without"]),
+                             plain_ms=pms6, nbytes=nb6, nops=no6,
+                             nflag=int((ex_open.shards[1].abcq > 0).sum()),
+                             nbl=ex_open.shards[1].bnl.numel())
+    del ex_open
     torch.cuda.empty_cache()
+    for name, x, w in (("K3 TB=3", k3_abc, t), ("K6 TB=3 slab 1/4", k6_abc,
+                                                  t6)):
+        print(f"[2] {name} ABC mode, the open-top headline box: "
+              f"{x.ms:.4f} ms a sweep, without the mode on the same inputs "
+              f"{x.off:.4f} ({100 * x.ms / x.off:.1f}%; windows "
+              f"{', '.join(f'{k} ' + ' '.join(f'{v:.4f}' for v in vs) for k, vs in w.items())}"
+              f"), plain {x.plain_ms:.4f} ms, {x.nbytes / 1e9:.4f} GB",
+              flush=True)
+    print(f"[2] K3 ABC mode bitwise equal to its plain version; K6 max rel "
+          f"err {r6:.3e} (abs {a6:.3e})", flush=True)
     k7_chk = k7_check(eng, gen, timing_reps=20)
     k7_print_require("fp32 main shapes", k7_chk, fp32=True)
     k1e_chk = k1e_check(eng, gen, timing_reps=20)
@@ -1862,7 +1922,12 @@ def main():
                         f"{r}")
 
     # ---- 3. small scenes, fp64 kernel routes vs the plain path
-    k2_abc_launches = 0
+    abc = {"K2": 0, "K3": 0, "K6": 0}    # launches in the ABC modes
+
+    def add_abc(c):
+        for k in abc:
+            abc[k] += named(c).get(k, 0)
+
     for n in OPEN_SMALL:
         s = small_scene(n)
         e = engine(s, np.float64)
@@ -1876,7 +1941,7 @@ def main():
         c = counts()
         require(c == launches(K1=e.Nt, K2=e.Nt), f"{n}: launches "
                 f"{named(c)}")
-        k2_abc_launches += c[1]
+        add_abc(c)
         err = rel_err(uk, up)
         ps = pad_x_interior(s, 2)
         up2 = engine(ps, np.float64).run(verbose=False)
@@ -1891,9 +1956,71 @@ def main():
                 f"{n}: not finite or empty")
         require(err <= 1e-12, f"{n} fp64 step route disagrees: {err}")
         require(err2 <= 1e-12, f"{n} fp64 x2 slabs disagree: {err2}")
-        require_abc_refusals(s, n)
-    print(f"[3] the TB, pair and energy routes refuse the open-top boxes; "
-          f"K2 launched {k2_abc_launches} times in its ABC mode", flush=True)
+        # K3 and K6 in their ABC modes, one sweep each from a random state
+        for TB in (2, 3, 8):
+            et = engine(s, np.float64, backend="tb", tb=TB)
+            a = tb_check(et, gen)[1]
+            require(et.tb_scene.abcq is not None and a == 0.0,
+                    f"{n}: K3 TB={TB}'s ABC mode differs from its plain "
+                    f"version: {a}")
+        for TB in (2, 3):
+            ex = sharded(s, np.float64, 2, backend="tb", tb=TB)
+            for k in range(2):
+                a = k6_check(ex, gen, k)[1]
+                require(ex.shards[k].tb_scene.abcq is not None and a == 0.0,
+                        f"{n}: K6 TB={TB} slab {k}'s ABC mode differs from "
+                        f"its plain version: {a}")
+        # the TB routes, one device and two slabs: bitwise the step route's
+        # receivers (on the padded grid for the slabs)
+        for kw in ({"backend": "tb", "tb": 3}, {"backend": "pair"},
+                   {"backend": "tb", "tb": 8}):
+            et = engine(s, np.float64, **kw)
+            reset_counts()
+            u = et.run(verbose=False)
+            c = counts()
+            require(c == counts_of(et, 1, et.Nt), f"{n} {kw}: launches "
+                    f"{named(c)}")
+            add_abc(c)
+            require(np.array_equal(u, uk), f"{n} {kw}: the receivers differ "
+                    f"from the step route's by {rel_err(u, uk):.3e}")
+        for b in ("tb", "pair"):
+            ex = sharded(s, np.float64, 2, backend=b)
+            reset_counts()
+            u = ex.run(verbose=False)
+            c = counts()
+            require(c == counts_of(ex, 2, ex.Nt), f"{n} x2 {b}: launches "
+                    f"{named(c)}")
+            add_abc(c)
+            require(np.array_equal(u, up2), f"{n} x2 {b}: the receivers "
+                    f"differ from the single device's step route's by "
+                    f"{rel_err(u, up2):.3e}")
+        # the energy route (K1e + K2's ABC mode + K7) vs its plain version
+        ek = engine(s, np.float64, energy_on=True)
+        reset_counts()
+        ue = ek.run(verbose=False)
+        c = counts()
+        require(c == energy_launches(ek.Nt)[0], f"{n} energy route "
+                f"launches {named(c)}")
+        add_abc(c)
+        ep = engine(s, np.float64, energy_on=True, use_kernels=False)
+        ep.run(verbose=False)
+        errs = {a: float(np.abs(getattr(ek, a) - getattr(ep, a)).max()
+                         / np.abs(getattr(ep, a)).max())
+                for a in ("H_tot", "E_lost", "E_in")}
+        require(max(errs.values()) <= 1e-12, f"{n}: energies vs plain "
+                f"{errs}")
+        require(np.array_equal(ue, uk), f"{n}: the energy route changed "
+                f"the receivers")
+        print(f"[3] {n} fp64: K3 (TB = 2, 3, 8) and K6 (TB = 2, 3, both "
+              f"slabs) in their ABC modes bitwise equal to their plain "
+              f"versions; tb TB=3, pair, tb TB=8 and x2 tb, pair receivers "
+              f"bitwise equal to the step route's; energy route vs plain "
+              f"{errs}, receivers bitwise equal to the energy-off run, "
+              f"balance {np.abs(ek.energy_balance()).max():.3e} (the "
+              f"reference's functional, which has no term for a lossy node "
+              f"on an ABC layer: not held under 1e-10 here; plain path "
+              f"{np.abs(ep.energy_balance()).max():.3e})", flush=True)
+    print(f"[3] launches in the ABC modes: {abc}", flush=True)
     for n, s in small.items():
         up = engine(s, np.float64, backend="step",
                     use_kernels=False).run(nt=NT_SMALL, verbose=False)
@@ -1939,6 +2066,23 @@ def main():
     ni = g.n_interior
     k1_ms, k2_ms = main_chk["K1"][2], main_chk["K2"][2]
     k1_bytes = ni * (3 * isz + eng.adj.element_size())
+    # the open-top box (phase 2's) on the tb route, K3 in its ABC mode,
+    # beside its step route, K2 in its ABC mode
+    u_otb, t_otb, c_otb = run_route(eng_open, counts_of(eng_open, 1))
+    add_abc(c_otb)
+    eng_open_step = engine(sim_open, np.float32)
+    u_ost, t_ost, c_ost = run_route(eng_open_step, counts_of(eng_open_step,
+                                                             1))
+    add_abc(c_ost)
+    require(np.array_equal(u_otb, u_ost), "the open-top headline box's tb "
+            f"route differs from its step route by {rel_err(u_otb, u_ost)}")
+    print(f"[4] the open-top headline box ({k2_abc.nflag} of {k2_abc.nbl} "
+          f"lossy nodes on an ABC layer): tb TB=3 {npts * NT / t_otb / 1e6:.1f}"
+          f" MVPS (best {t_otb:.4f} s, launches {named(c_otb)}), step "
+          f"{npts * NT / t_ost / 1e6:.1f} (best {t_ost:.4f} s, "
+          f"{named(c_ost)}); receivers bitwise equal", flush=True)
+    del eng_open, eng_open_step
+    torch.cuda.empty_cache()
     print(f"[4] launches per {NT} steps: tb TB=3 {named(c_tb)}, "
           f"pair {named(c_pr)}, step {named(c_k)}", flush=True)
     for name, u, t in (("tb TB=3", u_tb, t_tb), ("pair", u_pr, t_pr),
@@ -1951,15 +2095,9 @@ def main():
     print(f"[4] K1 {k1_ms:.4f} ms/step = {k1_bytes / k1_ms / 1e6:.1f} GB/s "
           f"at {k1_bytes / npts:.2f} B/voxel; K2 {k2_ms:.4f} ms/step",
           flush=True)
-    def k3_bytes_of(e):     # fields, adj, branch states, tile lists
-        tl = e.tb_scene.lists
-        return (ni * (4 * isz + eng.adj.element_size())
-                + eng.data.Nbl * (4 * MMb * isz + isz + 4)
-                + 4 * (tl.rptr.size + 3 * tl.node.size))
-
-    k3_bytes = k3_bytes_of(eng_tb)
+    k3_nbytes = k3_bytes(eng_tb)
     for TB, e in ((3, eng_tb), (2, eng_pair)):
-        nb = k3_bytes_of(e)
+        nb = k3_bytes(e)
         print(f"[4] K3 TB={TB} bound {nb / roof / 1e6:.4f} ms at the roof "
               f"({nb / HBM_BPS * 1e3:.4f} at the published rate), "
               f"{nb / 1e9:.4f} GB", flush=True)
@@ -1998,7 +2136,7 @@ def main():
                                main_chk["K2"][3], k2_bytes,
                                80.0 * eng.data.Nbl, None),
         "K3 tb_sweep": (c_tb[2], tb_chk[3][1], tb_chk[3][2], tb_chk[3][3],
-                        k3_bytes, 3 * 29.0 * ni
+                        k3_nbytes, 3 * 29.0 * ni
                         + 3 * 80.0 * eng.data.Nbl, None),
         "K4 stream": (k4_launches, s_err, k4["ms"], k4["torch_ms"], k4_bytes,
                       0.0, k4["torch_ms"]),
@@ -2030,16 +2168,24 @@ def main():
             "launches_1e9": p8.get(name, (0, None))[0],
             "ms_1e9": p8.get(name, (0, None))[1],
             "launches_bench": p9[name.split()[0]]})
-    # K2's ABC mode: its time on the open-top headline box (phase 2) and
-    # its launches on the open-top small scenes (phase 3)
-    b, _ = bound_ms(k2_abc.nbytes, 80.0 * k2_abc.nbl)
-    k2_row = next(r for r in rec["kernels"] if r["name"] == "K2 "
-                  "boundary_update")
-    k2_row["abc_mode"] = {
-        "ms": k2_abc.ms, "plain_ms": k2_abc.plain_ms, "bound_ms": b,
-        "bound_roof_ms": k2_abc.nbytes / roof / 1e6,
-        "launches": k2_abc_launches, "flagged": k2_abc.nflag,
-        "nodes": k2_abc.nbl}
+    # the ABC modes: their times on the open-top headline box (phase 2),
+    # beside the kernel without the mode on the same inputs (K2: the time
+    # measured by k2_abc_check), and their launches on the open-top scenes
+    # (phases 3 and 4)
+    nl = k2_abc.nbl
+    for name, x, nops in (
+            ("K2 boundary_update", k2_abc, 80.0 * nl),
+            ("K3 tb_sweep", k3_abc, 3 * 29.0 * ni + 3 * 80.0 * nl),
+            ("K6 tb_sweep_shard", k6_abc, k6_abc.nops)):
+        b, by = bound_ms(x.nbytes, nops)
+        row = next(r for r in rec["kernels"] if r["name"] == name)
+        row["abc_mode"] = {
+            "ms": x.ms, "ms_without": x.off, "plain_ms": x.plain_ms,
+            "bound_ms": b, "bound_by": by,
+            "bound_roof_ms": x.nbytes / roof / 1e6,
+            "launches": abc[name.split()[0]],
+            "flagged": getattr(x, "nflag", k2_abc.nflag),
+            "nodes": getattr(x, "nbl", nl)}
     print(card)   # again, where the end of a long output keeps it
     print(json.dumps(rec))
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@
 // Replaces the TPU kernels pffdtd_tpu/engine/pallas_pair.py
 // `build_fused_pair` (TB = 2) and pallas_tb.py `build_fused_tb` (TB 2..8),
 // single-device mode.  (u^{n-1}, u^n) -> (u^{n+TB-1}, u^{n+TB}); each step is
-// exactly K1 (stencil.cu), then K2 (boundary.cu), then the sources, with the
-// same operations in the same order, so a sweep equals TB single steps.
+// exactly K1 (stencil.cu), then K2 (boundary.cu, in its ABC mode where the
+// scene has lossy nodes on an ABC layer), then the sources, with the same
+// operations in the same order, so a sweep equals TB single steps.
 //
 // Design: 2.5-D, a y-z tile that marches along x.  Block (tz, ty, c) owns
 // the columns y in [oy0, oy0+By), z in [oz0, oz0+Bz) of the rows
@@ -70,6 +71,19 @@
 // (shared-memory atomics, so coincident sources add in no fixed order, as
 // index_add_ on the card).  Taps: the owner of a receiver's mirrored point
 // writes the intermediate rows u^{n+1} .. u^{n+TB-2}.
+//
+// ABC mode (ABC = true): lossy nodes on an ABC layer (an open room, a
+// surface at the domain's edge).  The reference runs stencil -> lossy ODE
+// -> ABC (jax_engine.py:664-685), but the stencil (b) has already applied
+// the ABC at every point of those layers.  So, as K2's ABC mode, an entry
+// whose node has Q = abcq[node] > 0 (lQ = lQ1..lQ3, the stencil's rounding)
+// first undoes it, s = ub*(1 + lQ) - lQ*u2b with u2b the u^{n+s-2} the
+// stencil read at that point, runs the ODE and the branch update on s and
+// writes (ub + lQ*u2b)/(1 + lQ).  Q is indexed by node, so the ghost-ring
+// entries that other tiles (or slabs) own find theirs too.  The host picks
+// the instance: a null abcq launches ABC = false, the sweep as it was, whose
+// code never reads abcq (it sits last in Args, after every field the sweep
+// reads, so that instance's parameter offsets are unchanged too).
 //
 // Race rule: a block reads its halo ring of u^{n-1}, u^n, vh and gh from the
 // input buffers while neighbouring blocks write their owned end-of-sweep
@@ -192,6 +206,7 @@ struct Args {
   int nr;
   int src_k2;      // a source sits on a listed lossy node
   int xa, xb, xl, xh, xo;  // shard mode: local x ranges and offset
+  const uint8_t* abcq;     // ABC mode: Q a lossy node, 0 off the ABC layers
 };
 
 // one value from device memory into shared memory (address dst), without
@@ -202,7 +217,8 @@ __device__ __forceinline__ void copy_async(unsigned dst, const T* src) {
                "l"(src), "n"(sizeof(T)));
 }
 
-template <typename T, typename A, int NN, int TB, int RZ, bool SHARD>
+template <typename T, typename A, int NN, int TB, int RZ, bool SHARD,
+          bool ABC>
 __global__ void __launch_bounds__(kMaxThreads)
 tb_sweep_kernel(const Args<T, A> p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -387,6 +403,15 @@ tb_sweep_kernel(const Args<T, A> p) {
     }
     const T lo2Kbg = p.lo2 * sa * p.beta[m];
     T ub = F[ow];
+    // ABC mode: undo the stencil's ABC at a node on an ABC layer (Q > 0),
+    // whose u^{n+s-2} is u2b, as K2's ABC mode does (boundary.cu)
+    int Q = 0;
+    T lQ = T(0);
+    if constexpr (ABC) {
+      Q = p.abcq[node];
+      lQ = Q == 1 ? p.lQ1 : (Q == 2 ? p.lQ2 : p.lQ3);
+      if (Q > 0) ub = ub * (T(1) + lQ) - lQ * u2b;
+    }
     ub = ub - p.l * sa * sum;
     ub = (ub + lo2Kbg * u2b) / (T(1) + lo2Kbg);
     const T du = ub - u2b;
@@ -396,6 +421,9 @@ tb_sweep_kernel(const Args<T, A> p) {
       gout[j * sout] = g[j] + T(0.5) * (v0 + v[j]);
       vout[j * sout] = v0;
     }
+    // the ABC after the ODE; the branches took the ODE's ub
+    if constexpr (ABC)
+      if (Q > 0) ub = (ub + lQ * u2b) / (T(1) + lQ);
     F[ow] = ub;
   };
 
@@ -540,18 +568,27 @@ size_t smem_bytes(int By, int Bz) {
   return P * (field_slots(TB) * sizeof(T) + adj_slots(TB) * sizeof(A));
 }
 
-template <typename T, typename A, int NN, int TB, int RZ>
-int launch_rz(const Args<T, A>& a, int threads, dim3 grid,
-              cudaStream_t stream) {
+template <typename T, typename A, int NN, int TB, int RZ, bool ABC>
+int launch_mode(const Args<T, A>& a, int threads, dim3 grid,
+                cudaStream_t stream) {
   constexpr bool SHARD = PF_TB_SHARD;
   const size_t smem = smem_bytes<T, A, TB>(a.By, a.Bz);
   cudaError_t e = cudaFuncSetAttribute(
-      tb_sweep_kernel<T, A, NN, TB, RZ, SHARD>,
+      tb_sweep_kernel<T, A, NN, TB, RZ, SHARD, ABC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  tb_sweep_kernel<T, A, NN, TB, RZ, SHARD><<<grid, threads, smem, stream>>>(
-      a);
+  tb_sweep_kernel<T, A, NN, TB, RZ, SHARD, ABC>
+      <<<grid, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// a uniform choice on the host: no Q array, the sweep without the ABC mode
+template <typename T, typename A, int NN, int TB, int RZ>
+int launch_rz(const Args<T, A>& a, int threads, dim3 grid,
+              cudaStream_t stream) {
+  if (a.abcq == nullptr)
+    return launch_mode<T, A, NN, TB, RZ, false>(a, threads, grid, stream);
+  return launch_mode<T, A, NN, TB, RZ, true>(a, threads, grid, stream);
 }
 
 // row widths Bz + 2 TB: 32 for either dtype, 64 for fp32 (kernels/tb.py
@@ -601,8 +638,8 @@ int run(int tb, const void* u0, const void* u1, const void* adj, void* out0,
         const void* coef, const void* beta, const void* vh_in,
         const void* gh_in, void* vh_out, void* gh_out, long long nbl,
         const void* src, const void* sig, int ns, const void* rcv,
-        void* taps, int nr, int src_k2, int xa, int xb, int xl, int xh,
-        int xo, cudaStream_t stream) {
+        void* taps, int nr, int src_k2, const void* abcq, int xa, int xb,
+        int xl, int xh, int xo, cudaStream_t stream) {
   if (Nx < 5 || Ny < 5 || Nz < 5 || Cx < 1 || By < 1 || Bz < 1)
     return (int)cudaErrorInvalidValue;
   // shard mode: owned rows inside the computable ones, which are global
@@ -643,6 +680,7 @@ int run(int tb, const void* u0, const void* u1, const void* adj, void* out0,
   a.nr = nr;
   a.src_k2 = src_k2;
   a.xa = xa; a.xb = xb; a.xl = xl; a.xh = xh; a.xo = xo;
+  a.abcq = static_cast<const uint8_t*>(abcq);
   return dispatch_tb<T, A, NN>(tb, a, threads, stream);
 }
 
@@ -655,7 +693,9 @@ int run(int tb, const void* u0, const void* u1, const void* adj, void* out0,
 // node, yz, ring; ne entries); scratch: (2 MMb, ne) of dtype; src, rcv:
 // int32 (n, 3) coordinates; sig: (tb, ns); taps: (tb-2, nr) or NULL for
 // tb = 2; src_k2: 1 if a source sits on a listed lossy node (its sample
-// then waits for K2).  Returns cudaGetLastError().
+// then waits for K2); abcq: (nbl,) uint8 Q a lossy node (indexed as vh_in's
+// columns), or NULL when no lossy node lies on an ABC layer (the sweep
+// without the ABC mode).  Returns cudaGetLastError().
 #define PF_TB_PARAMS                                                          \
   int dtype, int nn, int tb, const void *u0, const void *u1,                 \
       const void *adj, void *out0, void *out1, int Nx, int Ny, int Nz,       \
@@ -666,12 +706,12 @@ int run(int tb, const void* u0, const void* u1, const void* adj, void* out0,
       const void *mat, const void *coef, const void *beta,                   \
       const void *vh_in, const void *gh_in, void *vh_out, void *gh_out,      \
       long long nbl, const void *src, const void *sig, int ns,               \
-      const void *rcv, void *taps, int nr, int src_k2
+      const void *rcv, void *taps, int nr, int src_k2, const void *abcq
 #define PF_TB_ARGS                                                            \
   tb, u0, u1, adj, out0, out1, Nx, Ny, Nz, folded, Cx, By, Bz, threads, a2,  \
       sl2, lQ1, lQ2, lQ3, l, lo2, tl_rptr, tl_node, tl_yz, tl_ring, ne,      \
       scratch, ssaf, mat, coef, beta, vh_in, gh_in, vh_out, gh_out, nbl,     \
-      src, sig, ns, rcv, taps, nr, src_k2, xa, xb, xl, xh, xo, s
+      src, sig, ns, rcv, taps, nr, src_k2, abcq, xa, xb, xl, xh, xo, s
 #if PF_TB_SHARD
 // K6: Nx is the global extent; owned local rows [xa, xb), computable local
 // rows [xl, xh), global row = local row + xo.

@@ -275,7 +275,7 @@ class EngineData:
         self.ssaf_bnl = ssaf.astype(self.dtype)
         self.mat_bnl = vox.mat_bn[lossy].astype(np.int32)
         # Q of the lossy nodes on an ABC layer (0 elsewhere), or None when
-        # none is: K2 then runs as it would without the argument
+        # none is: K2, K3 and K6 then launch without their ABC modes
         q = abc_q(self.bnl_ixyz, self.grid)
         self.abcq_bnl = q if q.any() else None
         self.coef_table = self.mc.table(self.dtype)      # (Nmat+1, 4, MMb)

@@ -25,13 +25,14 @@ routes compute the same steps:
   so the fields rotate among four buffers and the branch states
   double-buffer.
 
-`_step_core` applies the lossy ODE before the ABC; K1 and K3 apply the ABC
-first.  The two orders agree whenever no lossy node lies on an ABC layer,
-which holds for every closed room built with the grid offset of 3.5 h.  An
-open room, or a surface that reaches the domain's edge, puts lossy nodes on
-those layers: the step route then passes their Q to K2 (`abcq`), which
-undoes K1's ABC there and applies it after the ODE, the reference's order.
-The TB routes and the energy route refuse such a scene.
+`_step_core` applies the lossy ODE before the ABC; K1 and K3's stencil
+apply the ABC first.  The two orders agree whenever no lossy node lies on
+an ABC layer, which holds for every closed room built with the grid offset
+of 3.5 h.  An open room, or a surface that reaches the domain's edge, puts
+lossy nodes on those layers: every route then passes their Q (`abcq`) to
+its ODE, K2's ABC mode on the step and energy routes, K3's on the TB
+routes, which undoes the stencil's ABC there and applies it after the
+ODE, the reference's order.
 
 Receiver samples go into a preallocated (Nt, Nr) device tensor, so the time
 loop has no host sync.  On CUDA tensors the wrappers launch the hand-written
@@ -47,7 +48,10 @@ which also writes L u^n and H[n]'s grid sums in the step's launch, and
 K7's boundary pass (`kernels.energy.energy_boundary_pass`) follows the
 step; on the CPU their plain versions, composed from `engine.energy`.
 `run()` then fills `H_tot`, `E_lost` and `E_in`, and `energy_balance()`
-gives the balance the JAX engine's does.
+gives the balance the JAX engine's does.  On an open room the route
+computes JAX's `step_energy` and its balance, which does not close there:
+the functional has no term for a node both lossy and on an ABC layer
+(the balance stays < 1e-10 wherever no such node lies).
 `run()` also takes JAX's per-chunk hook and checkpoint/resume
 (jax_engine.py:1181-1293): a checkpoint is an `.npz` of named arrays, the
 state at a chunk's end with the receiver (and energy) rows so far, and the
@@ -104,14 +108,6 @@ def pick_route(backend: str, tb: int = 3):
     return "tb", TB
 
 
-def abc_refusal(route: str) -> str:
-    """The refusal of a route that cannot run lossy nodes on ABC layers."""
-    return (f"a lossy boundary node lies on an ABC layer: the {route} route "
-            "applies the ABC before the lossy update, which is exact only "
-            "off those layers; the step route (backend='step' or 'auto', "
-            "energy off) runs such scenes in the reference's order")
-
-
 class TorchEngine:
     """Single-device FDTD engine on PyTorch tensors."""
 
@@ -139,9 +135,6 @@ class TorchEngine:
                              f"{backend!r} takes TB={self.TB} steps a "
                              f"sweep)")
         self.energy_on = energy_on
-        if d.abcq_bnl is not None and (self.TB is not None or energy_on):
-            route = "energy" if energy_on else f"{self.backend} TB={self.TB}"
-            raise ValueError(abc_refusal(route))
         dev = self.device
 
         def up(a):
@@ -166,7 +159,8 @@ class TorchEngine:
             self.tb_scene = TBScene.make(
                 d, self.TB, adj=self.adj, bnl=self.bnl, ssaf=self.ssaf,
                 mat=self.mat, coef_table=self.coef_table, beta=self.beta,
-                in_ixyz=self.in_ixyz, out_ixyz_f=self.out_ixyz_f)
+                in_ixyz=self.in_ixyz, out_ixyz_f=self.out_ixyz_f,
+                abcq=self.abcq)
 
     # -------------------------------------------------------------- state
     def _zeros(self, *shape):

@@ -12,8 +12,8 @@ seconds.
 then rounds every operation as its plain PyTorch version does, and the two
 agree to the last bit or close to it.  `-split-compile=0` optimizes the
 template instances of one source on every core at once: tb.cu and
-tb_shard.cu hold about forty K3/K6 instances each, which one thread
-compiles in minutes.
+tb_shard.cu hold about eighty K3/K6 instances each (half of them the ABC
+mode's), which one thread compiles in minutes.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _vp, _i, _ll, _d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_double)
 _TB_ARGS = ([_i] * 3 + [_vp] * 5 + [_i] * 8 + [_d] * 7 + [_vp] * 4 + [_ll]
-            + [_vp] * 9 + [_ll, _vp, _vp, _i, _vp, _vp, _i, _i])
+            + [_vp] * 9 + [_ll, _vp, _vp, _i, _vp, _vp, _i, _i, _vp])
 # C entry points: name -> argtypes (each returns cudaGetLastError() as int)
 SIGNATURES = {
     # dtype(0=f32,1=f64), nn, u0, u1, adj, out, Nx, Ny, Nz, folded,
@@ -59,9 +59,10 @@ SIGNATURES = {
     # dtype, nn, tb, u0, u1, adj, out0, out1, Nx, Ny, Nz, folded, Cx, By,
     # Bz, threads, a2, sl2, lQ1, lQ2, lQ3, l, lo2, tl_rptr, tl_node, tl_yz,
     # tl_ring, ne, scratch, ssaf, mat, coef, beta, vh_in, gh_in, vh_out,
-    # gh_out, nbl, src, sig, ns, rcv, taps, nr, src_k2, stream
+    # gh_out, nbl, src, sig, ns, rcv, taps, nr, src_k2, abcq (or null),
+    # stream
     "pf_tb_sweep": _TB_ARGS + [_vp],
-    # pf_tb_sweep's arguments up to src_k2 (Nx the global extent), then the
+    # pf_tb_sweep's arguments up to abcq (Nx the global extent), then the
     # local x ranges: owned rows [xa, xb), computable rows [xl, xh), the
     # offset xo, and the stream
     "pf_tb_sweep_shard": _TB_ARGS + [_i] * 5 + [_vp],

@@ -1,24 +1,28 @@
-"""K1 and K2 of this tree against another checkout's, on the card:
+"""K1, K1e, K2 and K3 of this tree against another checkout's, on the card:
 
-    python -m pffdtd_tpu_torch.kernels.probe --base DIR [--kernels K1,K2]
+    python -m pffdtd_tpu_torch.kernels.probe --base DIR [--kernels K1,K3]
 
 DIR holds another checkout's `csrc/` files: `stencil.cu` (and `energy.cu`,
-if its K1 calls K7's middle stage) for K1, `boundary.cu` for K2.  Both
-trees' sources are built by nvcc, with the kernels' flags, into libraries
-of their own under `_build/probe/`.  For each kernel:
+if its K1 calls K7's middle stage) for K1 and K1e, `boundary.cu` for K2,
+`tb.cu` and `tb_shard.cu` for K3 (and K6).  Both trees' sources are built
+by nvcc, with the kernels' flags, into libraries of their own under
+`_build/probe/`.  For each kernel:
 1. the SASS of the instances that both trees have (K1/K5 with the energy
-   mode off, K2 without its ABC mode) is compared instruction for
-   instruction;
+   mode off; K1e and its shard instances; K2 without its ABC mode; K3 and
+   K6 without theirs, at every dtype, adjacency, TB and row width) is
+   compared instruction for instruction;
 2. the kernel is timed from both in turns (base, tree, tree, base, twice),
-   fp32 and fp64: K1 on random fields at the headline cell's shapes (792 x
-   310 x 510, FCC, every leg set), K2 on the headline cell's lossy nodes
-   (the 36 x 28 x 23 m folded-FCC box at h = 0.046: 1,169,067 nodes) from a
-   seeded random state, after one call of each compared bit for bit;
-3. K2 only: on the same box without its top wall (its lossy nodes on the
-   top ABC layer flagged), this tree's K2 in its ABC mode and without it,
-   in turns.
+   fp32 and fp64: K1 and K1e on random fields at the headline cell's
+   shapes (792 x 310 x 510, FCC, every leg set), K2 on the headline cell's
+   lossy nodes (the 36 x 28 x 23 m folded-FCC box at h = 0.046: 1,169,067
+   nodes) and K3 (TB = 3) on the headline cell, each from a seeded random
+   state, after one call of each compared bit for bit;
+3. K2 and K3: on the same box without its top wall (its lossy nodes on the
+   top ABC layer flagged), this tree's kernel in its ABC mode and without
+   it on the same inputs, in turns (fp32).
 Times are CUDA-event windows of 20 calls; each line prints every window and
-the best.  The first line printed is the card's name and power limit.
+the best.  Each library's build time is printed (the two trees' builds of
+one kernel run one after the other, each on every core).  The first line printed is the card's name and power limit.
 `kernels.k1e_probe` builds its variants of K1e with the same helpers.
 """
 
@@ -26,9 +30,11 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -45,11 +51,19 @@ _vp, _ll, _d, _i = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double,
                     ctypes.c_int)
 # pf_boundary_update before K2's ABC mode: no abcq, lQ1..lQ3
 K2_BASE_ARGS = [_i] + [_vp] * 9 + [_ll, _d, _d, _vp]
-# the instances both trees have: (dtype, adj, legs, shard) with the energy
-# mode off; K2's dtype without the ABC mode
+# pf_tb_sweep before K3's ABC mode: no abcq
+K3_BASE_ARGS = _build.SIGNATURES["pf_tb_sweep"][:-2] + [_vp]
+# the instances both trees have: (regex, the key's groups, the group of the
+# mode left out, its value): (dtype, adj, legs, shard) with the energy mode
+# off (K1, K5) and on (K1e); K2's dtype without the ABC mode; (dtype, adj,
+# legs, TB, row width, shard) of K3 and K6 without theirs
 K1_SASS = (r"stencil_step_kernelI([fd])([ht])Li(\d+)ELb([01])E(Lb([01])E)?",
-           (1, 2, 3, 4), 6)
-K2_SASS = (r"boundary_update_kernelI([fd])(Lb([01])E)?", (1,), 3)
+           (1, 2, 3, 4), 6, "1")
+K1E_SASS = (r"stencil_step_kernelI([fd])([ht])Li(\d+)ELb([01])E(Lb([01])E)",
+            (1, 2, 3, 4), 6, "0")
+K2_SASS = (r"boundary_update_kernelI([fd])(Lb([01])E)?", (1,), 3, "1")
+K3_SASS = (r"tb_sweep_kernelI([fd])([ht])Li(\d+)ELi(\d+)ELi(\d+)ELb([01])E"
+           r"(Lb([01])E)?", (1, 2, 3, 4, 5, 6), 8, "1")
 
 
 def card_line():
@@ -62,7 +76,9 @@ def build_lib(name: str, sources: dict, include: Path,
               signatures: dict | None = None) -> ctypes.CDLL:
     """nvcc of `sources` ({file name: source text}), one process a file,
     into _build/probe/<name>/lib.so; the C entries present get their
-    argument types from `signatures` (default the kernels')."""
+    argument types from `signatures` (default the kernels').  Prints the
+    build's seconds."""
+    t0 = time.perf_counter()
     d = PROBE / name
     d.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
@@ -81,6 +97,8 @@ def build_lib(name: str, sources: dict, include: Path,
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
     subprocess.run([nvcc, *_build.ARCH, "-shared", "-o", str(d / "lib.so"),
                     *map(str, objs)], check=True)
+    print(f"[build] {name}: {', '.join(sources)} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     lib = ctypes.CDLL(str(d / "lib.so"))
     for fn, args in (signatures or _build.SIGNATURES).items():
         if hasattr(lib, fn):
@@ -91,16 +109,16 @@ def build_lib(name: str, sources: dict, include: Path,
 
 def sass(obj: Path, pattern) -> dict:
     """{key: instruction lines} of the kernels in `obj` whose name matches
-    pattern = (regex, the key's groups, the mode's group): those with the
-    mode's group "1" are left out."""
-    regex, keys, mode = pattern
+    pattern = (regex, the key's groups, the mode's group, a value): those
+    whose mode's group holds that value are left out."""
+    regex, keys, mode, skip = pattern
     cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
     txt = subprocess.run([cuobjdump, "-sass", str(obj)], capture_output=True,
                          text=True, check=True).stdout
     out = {}
     for block in txt.split("Function : ")[1:]:
         m = re.search(regex, block.splitlines()[0])
-        if not m or m.group(mode) == "1":
+        if not m or m.group(mode) == skip:
             continue
         out[m.group(*keys)] = [
             re.sub(r"/\*[0-9a-f]{4}\*/", "", ln).split(";")[0].strip()
@@ -109,12 +127,20 @@ def sass(obj: Path, pattern) -> dict:
     return out
 
 
-def compare_sass(what, pattern, base: Path, tree: Path):
+def compare_sass(what, pattern, base: Path, tree: Path, each=True):
+    """Prints each instance's comparison (each=False: one line for all)."""
     sb, st = sass(base, pattern), sass(tree, pattern)
-    for key in sorted(sb):
-        print(f"[sass] {what} {key}: {len(sb[key])} instructions in base, "
-              f"{len(st.get(key, []))} in tree, identical "
-              f"{sb[key] == st.get(key)}", flush=True)
+    same = [k for k in sorted(sb) if sb[k] == st.get(k)]
+    if each:
+        for key in sorted(sb):
+            print(f"[sass] {what} {key}: {len(sb[key])} instructions in "
+                  f"base, {len(st.get(key, []))} in tree, identical "
+                  f"{sb[key] == st.get(key)}", flush=True)
+    else:
+        n = sum(len(v) for v in sb.values())
+        print(f"[sass] {what}: {len(same)} of {len(sb)} instances "
+              f"identical ({n} instructions in base); differing: "
+              f"{sorted(set(sb) - set(same)) or 'none'}", flush=True)
 
 
 def turns(calls: dict, order) -> dict:
@@ -176,22 +202,36 @@ def k1_sources(d: Path) -> dict:
             if (d / f).exists()}
 
 
-def probe_k1(base: Path):
-    libs = {"base": build_lib("k1_base", k1_sources(base), base),
-            "tree": build_lib("k1_tree", k1_sources(_build.CSRC),
-                              _build.CSRC)}
-    compare_sass("K1/K5 (dtype, adj, legs, shard)", K1_SASS,
+_K1_LIBS: dict = {}
+
+
+def _probe_stencil(base: Path, name: str, pattern, call):
+    """K1 or K1e: both trees' stencil.cu (with energy.cu), built once."""
+    if not _K1_LIBS:
+        _K1_LIBS["base"] = build_lib("k1_base", k1_sources(base), base)
+        _K1_LIBS["tree"] = build_lib("k1_tree", k1_sources(_build.CSRC),
+                                     _build.CSRC)
+    libs = _K1_LIBS
+    compare_sass(f"{name} (dtype, adj, legs, shard)", pattern,
                  PROBE / "k1_base" / "stencil.o",
                  PROBE / "k1_tree" / "stencil.o")
     for dt in (torch.float32, torch.float64):
         f = Fields(dt)
-        calls = {k: f.k1(lib) for k, lib in libs.items()}
-        print(f"[base] K1 {dt} FCC {SHAPE}: "
+        calls = {k: call(f, lib) for k, lib in libs.items()}
+        print(f"[base] {name} {dt} FCC {SHAPE}: "
               + fmt(turns(calls, IN_TURNS)), flush=True)
         del f
 
 
-def _k2_engine(dtype, open_top=False):
+def probe_k1(base: Path):
+    _probe_stencil(base, "K1/K5", K1_SASS, Fields.k1)
+
+
+def probe_k1e(base: Path):
+    _probe_stencil(base, "K1e", K1E_SASS, Fields.k1e)
+
+
+def _headline_engine(dtype, open_top=False, **kw):
     from pffdtd_tpu_torch.bench import DEF11
     from pffdtd_tpu_torch.engine.torch_engine import TorchEngine
     from pffdtd_tpu_torch.scene import (fold_fcc_sim, rotate_sim, sort_sim,
@@ -202,7 +242,7 @@ def _k2_engine(dtype, open_top=False):
                             open_top=open_top)
     sim = sort_sim(fold_fcc_sim(rotate_sim(sim, orient="descending")))
     return TorchEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
-                       mats=sim.mats, dtype=dtype, device="cuda")
+                       mats=sim.mats, dtype=dtype, device="cuda", **kw)
 
 
 class _K2State:
@@ -252,7 +292,7 @@ def probe_k2(base: Path):
                  PROBE / "k2_base" / "boundary.o",
                  PROBE / "k2_tree" / "boundary.o")
     for dtype in (np.float32, np.float64):
-        s = _K2State(_k2_engine(dtype))
+        s = _K2State(_headline_engine(dtype))
         outs = []
         for lib in libs.values():
             bufs = (s.un.clone(), s.vh.clone(), s.gh.clone())
@@ -266,7 +306,7 @@ def probe_k2(base: Path):
               + fmt(turns(calls, IN_TURNS)), flush=True)
         del s
         torch.cuda.empty_cache()
-    s = _K2State(_k2_engine(np.float32, open_top=True))
+    s = _K2State(_headline_engine(np.float32, open_top=True))
     calls = {"ABC mode": s.call(libs["tree"], abc_mode=True),
              "without": s.call(libs["tree"])}
     order = ("without", "ABC mode", "ABC mode", "without") * 2
@@ -275,7 +315,91 @@ def probe_k2(base: Path):
           f"ABC layer): " + fmt(turns(calls, order)), flush=True)
 
 
-PROBES = {"K1": probe_k1, "K2": probe_k2}
+class _K3State:
+    """A seeded random state for one K3 sweep on `eng`'s scene (a tb
+    engine), and K3's calls from a library; `abc_mode` False launches the
+    sweep without the ABC mode on a scene that has a Q array."""
+
+    def __init__(self, eng):
+        from pffdtd_tpu_torch.io.simdata import MMb
+
+        g = torch.Generator(device="cuda").manual_seed(0)
+        d, TB = eng.data, eng.TB
+        r = lambda *s: torch.randn(s, generator=g, device="cuda",
+                                   dtype=eng.dtype)
+        self.eng = eng
+        self.ins = (r(*d.grid.shape), r(*d.grid.shape))
+        self.sts = (r(MMb, d.Nbl), r(MMb, d.Nbl))
+        self.sig = r(TB, d.in_ixyz.size)
+
+    def outputs(self):
+        d, TB = self.eng.data, self.eng.TB
+        z = lambda *s: torch.zeros(s, device="cuda", dtype=self.eng.dtype)
+        return ([z(*d.grid.shape), z(*d.grid.shape)],
+                [z(*self.sts[0].shape), z(*self.sts[0].shape)],
+                z(TB - 2, d.out_ixyz.size) if TB > 2 else None)
+
+    def call(self, lib, outs, abc_mode=True):
+        from pffdtd_tpu_torch.kernels.tb import _launch_args
+
+        st = self.eng.tb_scene
+        if not abc_mode:
+            st = dataclasses.replace(st, abcq=None)
+        o, sts, taps = outs
+        args = _launch_args(st, *self.ins, *o, *self.sts, *sts, self.sig,
+                            taps)
+        if not lib.abc:
+            args = args[:-1]
+        stream = torch.cuda.current_stream().cuda_stream
+        return lambda: _build.check(lib.pf_tb_sweep(*args, stream), "K3")
+
+
+def _k3_lib(name, d: Path):
+    src = (d / "tb.cu").read_text()
+    abc = "abcq" in src
+    sig = None if abc else {"pf_tb_sweep": K3_BASE_ARGS}
+    lib = build_lib(name, {"tb.cu": src,
+                           "tb_shard.cu": (d / "tb_shard.cu").read_text()},
+                    d, sig)
+    lib.abc = abc
+    return lib
+
+
+def probe_k3(base: Path):
+    libs = {"base": _k3_lib("k3_base", base),
+            "tree": _k3_lib("k3_tree", _build.CSRC)}
+    for f, what in (("tb.o", "K3"), ("tb_shard.o", "K6")):
+        compare_sass(f"{what} without the ABC mode (dtype, adj, legs, TB, "
+                     f"row width, shard)", K3_SASS, PROBE / "k3_base" / f,
+                     PROBE / "k3_tree" / f, each=False)
+    for dtype in (np.float32, np.float64):
+        s = _K3State(_headline_engine(dtype, backend="tb", tb=3))
+        outs = {k: s.outputs() for k in libs}
+        for k, lib in libs.items():
+            s.call(lib, outs[k])()
+        torch.cuda.synchronize()
+        flat = lambda o: [o[0][0], o[0][1], *o[1], o[2]]
+        same = all(torch.equal(a, b) for a, b in zip(flat(outs["base"]),
+                                                     flat(outs["tree"])))
+        calls = {k: s.call(lib, outs[k]) for k, lib in libs.items()}
+        print(f"[base] K3 TB=3 {np.dtype(dtype).name} headline "
+              f"({s.eng.data.Nbl} nodes, tiles {s.eng.tb_scene.lists.box}): "
+              f"bitwise equal {same}; " + fmt(turns(calls, IN_TURNS)),
+              flush=True)
+        del s, outs, calls
+        torch.cuda.empty_cache()
+    s = _K3State(_headline_engine(np.float32, open_top=True, backend="tb",
+                                  tb=3))
+    out = s.outputs()
+    calls = {"ABC mode": s.call(libs["tree"], out),
+             "without": s.call(libs["tree"], out, abc_mode=False)}
+    order = ("without", "ABC mode", "ABC mode", "without") * 2
+    print(f"[abc] K3 TB=3 float32, the open-top headline box "
+          f"({int((s.eng.abcq > 0).sum())} of {s.eng.data.Nbl} nodes on an "
+          f"ABC layer): " + fmt(turns(calls, order)), flush=True)
+
+
+PROBES = {"K1": probe_k1, "K1e": probe_k1e, "K2": probe_k2, "K3": probe_k3}
 
 
 def main(argv=None):
@@ -283,7 +407,7 @@ def main(argv=None):
     ap.add_argument("--base", type=Path, required=True,
                     help="a directory holding another checkout's csrc "
                     "files")
-    ap.add_argument("--kernels", default="K1,K2",
+    ap.add_argument("--kernels", default=",".join(PROBES),
                     help="the kernels to compare, of " + ",".join(PROBES))
     args = ap.parse_args(argv)
     names = args.kernels.split(",")

@@ -9,6 +9,15 @@ flips, masked stencil, leapfrog, ABC), K2 (the lossy ODE), then the
 sources.  The receiver samples of the intermediate fields u^{n+1} ..
 u^{n+TB-2} go into `taps`, a (TB-2, Nr) view (None for TB = 2).
 
+Open rooms: where lossy nodes lie on an ABC layer, the scene's `abcq`
+((Nbl,) uint8, Q a node, `EngineData.abcq_bnl`) selects the kernel's ABC
+mode, the sweep's counterpart of K2's: at a node with Q > 0 the ODE undoes
+the stencil's ABC, runs on that value and applies the ABC to what it
+writes, so each step is the reference's stencil, ODE, ABC
+(jax_engine.py:664-685), and the plain versions pass `abcq` to
+`boundary_update_plain`.  A scene without such a node has `abcq` None and
+launches the sweep without that code.
+
 It replaces pffdtd_tpu/engine/pallas_pair.py `build_fused_pair` (TB = 2)
 and pallas_tb.py `build_fused_tb` (TB = 2..8), single-device mode.
 
@@ -172,7 +181,8 @@ class TBScene:
     states and the sources' and mirrored receivers' (n, 3) coordinates
     instead of flat indices.  A slab's scene (`slab` set)
     holds local indices and coordinates: the nodes and sources within TB-1
-    rows of its owned rows, and its owned receivers."""
+    rows of its owned rows, and its owned receivers.  `abcq`: Q of each
+    lossy node (0 off the ABC layers), or None where no node lies on one."""
 
     grid: GridSpec
     sc: object
@@ -195,6 +205,7 @@ class TBScene:
     rcv_xyz: torch.Tensor
     src_k2: bool              # a source sits on a lossy node
     slab: SlabSpec | None = None
+    abcq: torch.Tensor | None = None   # (Nbl,) uint8: the ABC mode
 
     @property
     def shape(self):
@@ -202,9 +213,11 @@ class TBScene:
 
     @classmethod
     def make(cls, data, TB: int, *, adj, bnl, ssaf, mat, coef_table, beta,
-             in_ixyz, out_ixyz_f, lists: TileLists | None = None):
-        """From an `EngineData` and the engine's device tensors; plans the
-        tiles unless `lists` is given."""
+             in_ixyz, out_ixyz_f, abcq=None,
+             lists: TileLists | None = None):
+        """From an `EngineData` and the engine's device tensors (abcq: the
+        engine's Q array, or None); plans the tiles unless `lists` is
+        given."""
         g = data.grid
         if lists is None:
             lists = plan_tiles(g, TB, data.dtype.itemsize, data.bnl_ixyz)
@@ -221,15 +234,17 @@ class TBScene:
                    **_list_tensors(lists, ssaf, up),
                    src_xyz=up(_xyz(data.in_ixyz, g)),
                    rcv_xyz=up(_xyz(mirror_index(data.out_ixyz, g), g)),
-                   src_k2=bool(np.isin(data.in_ixyz, data.bnl_ixyz).any()))
+                   src_k2=bool(np.isin(data.in_ixyz, data.bnl_ixyz).any()),
+                   abcq=abcq)
 
     @classmethod
     def make_slab(cls, slab: SlabSpec, sc, TB: int, itemsize: int, *, adj,
-                  bnl, ssaf, mat, coef_table, beta, in_ixyz, out_ixyz_f):
+                  bnl, ssaf, mat, coef_table, beta, in_ixyz, out_ixyz_f,
+                  abcq=None):
         """A slab's scene from its device tensors, all indices local to
         `slab.shape` (bnl and in_ixyz: the nodes and sources within TB-1 of
-        the owned rows; out_ixyz_f: the owned receivers, mirrored); plans
-        the tiles."""
+        the owned rows; out_ixyz_f: the owned receivers, mirrored; abcq:
+        those nodes' Q on the global grid, or None); plans the tiles."""
         lists = plan_tiles(slab.grid, TB, itemsize, bnl.cpu().numpy(), slab)
         if slab.S < 2 * TB:
             raise ValueError(f"slab of S={slab.S} rows: K6 needs >= 2*TB")
@@ -246,7 +261,7 @@ class TBScene:
                    rcv_xyz=up(_xyz(out_ixyz_f.cpu().numpy(), slab)),
                    src_k2=bool(np.isin(in_ixyz.cpu().numpy(),
                                        bnl.cpu().numpy()).any()),
-                   slab=slab)
+                   slab=slab, abcq=abcq)
 
 
 def _list_tensors(lists: TileLists, ssaf, up) -> dict:
@@ -290,6 +305,12 @@ def _check(st: TBScene, u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out,
     tensors = [u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out, sig,
                st.adj, st.bnl, st.mat, st.in_ixyz, st.out_ixyz_f, st.tl_rptr,
                st.scratch]
+    if st.abcq is not None:
+        if (st.abcq.dtype != torch.uint8 or tuple(st.abcq.shape) != (nbl,)
+                or not st.abcq.is_contiguous()):
+            raise ValueError(f"abcq: want a contiguous ({nbl},) uint8 "
+                             "tensor")
+        tensors.append(st.abcq)
     if len({t.device for t in tensors + ([taps] if TB > 2 else [])}) != 1:
         raise ValueError("every tensor of a sweep must lie on one device")
     if len({t.data_ptr() for t in (u0, u1, out0, out1)}) != 4:
@@ -333,7 +354,7 @@ tb_sweep.launches = 0
 
 def _launch_args(st, u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out, sig,
                  taps):
-    """The arguments K3 and K6 share, up to the number of receivers."""
+    """The arguments K3 and K6 share, up to the Q array."""
     g, sc, tl = st.grid, st.sc, st.lists
     Nx, Ny, Nz = g.shape
     return (
@@ -349,7 +370,8 @@ def _launch_args(st, u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out, sig,
         gh_out.data_ptr(), st.bnl.numel(), st.src_xyz.data_ptr(),
         sig.data_ptr(), st.in_ixyz.numel(), st.rcv_xyz.data_ptr(),
         taps.data_ptr() if taps is not None else None,
-        st.out_ixyz_f.numel(), int(st.src_k2))
+        st.out_ixyz_f.numel(), int(st.src_k2),
+        None if st.abcq is None else st.abcq.data_ptr())
 
 
 def tb_sweep_shard(st: TBScene, u0, u1, out0, out1, vh_in, gh_in, vh_out,
@@ -398,7 +420,8 @@ def tb_sweep_plain(st: TBScene, u0, u1, out0, out1, vh_in, gh_in, vh_out,
         dst = bufs[(TB - 1 - s) % 3]
         stencil_step_plain(prev, cur, st.adj, dst, st.grid, st.sc)
         boundary_update_plain(dst, prev, st.bnl, st.ssaf, st.mat,
-                              st.coef_table, st.beta, vh_out, gh_out, st.sc)
+                              st.coef_table, st.beta, vh_out, gh_out, st.sc,
+                              st.abcq)
         dst.view(-1).index_add_(0, st.in_ixyz, sig[s])
         if s < TB - 2:
             torch.index_select(dst.view(-1), 0, st.out_ixyz_f, out=taps[s])
@@ -431,7 +454,8 @@ def tb_sweep_shard_plain(st: TBScene, u0, u1, out0, out1, vh_in, gh_in,
         i = torch.nonzero((node_x >= r0) & (node_x < r1))[:, 0]
         v, g = vh[:, i].contiguous(), gh[:, i].contiguous()
         boundary_update_plain(dst, prev, st.bnl[i], st.ssaf[i], st.mat[i],
-                              st.coef_table, st.beta, v, g, st.sc)
+                              st.coef_table, st.beta, v, g, st.sc,
+                              None if st.abcq is None else st.abcq[i])
         vh[:, i], gh[:, i] = v, g
         m = (src_x >= r0) & (src_x < r1)
         dst.view(-1).index_add_(0, st.in_ixyz[m], sig[s][m])

@@ -16,9 +16,7 @@ Routes, as `TorchEngine`'s (`pick_route`):
 - **step** (G = 1 ghost row a side).  Per step: copy one plane of u^n each
   way into the neighbours' ghost rows; per slab, read its owned receivers,
   run K5 (`stencil_step_shard`, K1 on the owned rows), K2 on its owned
-  lossy nodes and add its owned sources (`index_add_`).  Lossy nodes on an
-  ABC layer take K2's ABC mode, their Q from the global grid, as on
-  `TorchEngine`'s step route; the tb and pair routes refuse such scenes.
+  lossy nodes and add its owned sources (`index_add_`).
 - **tb** / **pair** (G = TB).  Per sweep: copy TB planes of u^{n-1} and of
   u^n each way; per slab, one K6 sweep (`tb_sweep_shard`) that recomputes
   the ghost bands' points, lossy nodes and sources as its halo ring; then
@@ -26,6 +24,9 @@ Routes, as `TorchEngine`'s (`pick_route`):
   (`index_select`, `copy_`, `index_copy_`), the counterpart of the state
   grafts at sharded_pallas.py:611-652 and :777-800.  The nt % TB remaining
   steps run K5 + K2 on the same layout.
+Lossy nodes on an ABC layer (an open room) take K2's and K6's ABC modes on
+every route, their Q from the global grid (a slab without such a node
+launches the kernels without the mode), as on `TorchEngine`.
 
 Each receiver has one owner, which writes its samples into a per-slab
 (nt, Nr_k) tensor; `run` gathers them into one (nt, Nr) tensor on
@@ -44,8 +45,7 @@ import torch
 
 from pffdtd_tpu_torch.convert import slabs_to_global
 from pffdtd_tpu_torch.engine.data import EngineData
-from pffdtd_tpu_torch.engine.torch_engine import _TORCH_DTYPE, abc_refusal, \
-    pick_route
+from pffdtd_tpu_torch.engine.torch_engine import _TORCH_DTYPE, pick_route
 from pffdtd_tpu_torch.io.simdata import MMb, SimData, read_sim_folder, \
     write_outputs
 from pffdtd_tpu_torch.kernels.boundary import boundary_update, \
@@ -114,7 +114,8 @@ class _Slab:
                 part.slab, data.sc, TB, data.dtype.itemsize, adj=self.adj,
                 bnl=self.bnl, ssaf=self.ssaf, mat=self.mat,
                 coef_table=self.coef_table, beta=self.beta,
-                in_ixyz=up(part.src_loc), out_ixyz_f=self.rcv)
+                in_ixyz=up(part.src_loc), out_ixyz_f=self.rcv,
+                abcq=self.abcq)
 
 
 class ShardedTorchEngine:
@@ -142,9 +143,6 @@ class ShardedTorchEngine:
         if S < 2 * G:
             raise ValueError(f"{D} slabs of {S} rows: the {self.backend} "
                              f"route needs >= {2 * G} rows a slab")
-        if d.abcq_bnl is not None and self.TB is not None:
-            raise ValueError(abc_refusal(f"x-slab {self.backend} "
-                                         f"TB={self.TB}"))
         parts = partition(d, self.slabs)
         self.shards = [_Slab(p, d, dev, self.TB)
                        for p, dev in zip(parts, self.devices)]

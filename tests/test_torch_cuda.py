@@ -28,9 +28,13 @@ grid pass, K1, K2 and K7's boundary pass, and its resume bitwise equal to
 the uninterrupted run; K8 (the modal recurrence) <= 1e-12 of its numpy loop
 and of its design's plain version (`modal_split_plain`), its loop modes
 bitwise equal to the numpy loop.
-K2's ABC mode (lossy nodes on an ABC layer, an open-top box) bitwise
-equal to its plain version, and the open-top box's kernel path within
-1e-12 of its plain path in fp64.
+K2's and K3/K6's ABC modes (lossy nodes on an ABC layer, an open-top box)
+bitwise equal to their plain versions (K3 at TB = 2, 3, 8, K6 at 2 and 3
+on both slabs of a D = 2 split), the open-top box's kernel path within
+1e-12 of its plain path in fp64, its tb, pair and x-slab tb/pair routes'
+receivers bitwise equal to its step route's, and its energy route's
+energies within 1e-12 of the plain path's (the balance is the reference's,
+which does not close there).
 Beside the kernels: the energy route (K1 + K2 + K7) against the plain
 path, a resume at a step that is no multiple of TB, and the modal filter
 on the card against its numpy loop, <= 1e-12.
@@ -136,16 +140,26 @@ def test_kernels_match_plain_one_call(cuda, name, dtype):
         assert _rel(x, y) <= TOL[dtype]
 
 
-def _open_top_engine(fcc, dtype, **kw):
+def _open_top_sim(fcc):
     """An open-top lossy box: its side walls' lossy nodes reach the top
-    ABC layer, so K2 runs in its ABC mode."""
+    ABC layer, so K2, K3 and K6 run in their ABC modes."""
     sim = synthetic_box_sim(1.2, 1.0, 0.9, h=0.1 if fcc else 0.08, Nt=64,
                             fcc=fcc, lossy=True, insig_type="hann10",
                             diff_source=False, open_top=True)
-    if fcc:
-        sim = sort_sim(fold_fcc_sim(sim))
+    return sort_sim(fold_fcc_sim(sim)) if fcc else sim
+
+
+def _open_top_engine(fcc, dtype, **kw):
+    sim = _open_top_sim(fcc)
     return TorchEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
                        mats=sim.mats, dtype=dtype, device="cuda", **kw)
+
+
+def _open_top_sharded(fcc, dtype, D, **kw):
+    sim = _open_top_sim(fcc)
+    return make_sharded_engine(consts=sim.consts, vox=sim.vox,
+                               comms=sim.comms, mats=sim.mats,
+                               devices=["cuda"] * D, dtype=dtype, **kw)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -177,6 +191,82 @@ def test_open_top_kernel_path_matches_plain_path_fp64(cuda, fcc):
                           use_kernels=False).run(verbose=False)
     assert np.abs(up).max() > 0
     assert np.abs(uk - up).max() / np.abs(up).max() <= 1e-12
+
+
+@pytest.mark.parametrize("TB", [2, 3, 8])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("fcc", [False, True])
+def test_k3_abc_mode_matches_plain_bitwise(cuda, fcc, dtype, TB):
+    eng = _open_top_engine(fcc, dtype, backend="tb", tb=TB)
+    st = eng.tb_scene
+    assert st.abcq is not None and int((st.abcq > 0).sum()) > 0
+    rng = np.random.default_rng(6)
+    t = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(dtype)).to(cuda)
+    outs = _sweep_pair(tb_sweep, tb_sweep_plain, st, t, eng.data.Nbl, TB,
+                       dtype, cuda)
+    inner = (slice(1, -1),) * 3
+    for i, (a, b) in enumerate(zip(*outs)):
+        if i < 2:
+            a, b = a[inner], b[inner]
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("TB", [2, 3])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("fcc", [False, True])
+def test_k6_abc_mode_matches_plain_bitwise(cuda, fcc, dtype, TB):
+    eng = _open_top_sharded(fcc, dtype, 2, backend="tb", tb=TB)
+    rng = np.random.default_rng(7)
+    t = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(dtype)).to(cuda)
+    for sh in eng.shards:
+        assert sh.tb_scene.abcq is not None
+        outs = _sweep_pair(tb_sweep_shard, tb_sweep_shard_plain,
+                           sh.tb_scene, t, sh.bnl.numel(), TB, dtype, cuda)
+        own = (slice(*sh.slab.owned), slice(1, -1), slice(1, -1))
+        mine = torch.from_numpy(sh.part.node_own).to(cuda)
+        for i, (a, b) in enumerate(zip(*outs)):
+            a, b = (a[own], b[own]) if i < 2 else \
+                (a[:, mine], b[:, mine]) if i < 4 else (a, b)
+            assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fcc", [False, True])
+def test_open_top_tb_routes_equal_step_route(cuda, fcc):
+    u = _open_top_engine(fcc, np.float64).run(verbose=False)
+    for kw in ({"backend": "tb", "tb": 3}, {"backend": "pair"},
+               {"backend": "tb", "tb": 8}):
+        n3 = tb_sweep.launches
+        e = _open_top_engine(fcc, np.float64, **kw)
+        assert np.array_equal(e.run(verbose=False), u)
+        assert tb_sweep.launches == n3 + e.Nt // e.TB
+    ps = pad_x_interior(_open_top_sim(fcc), 2)
+    u2 = TorchEngine(consts=ps.consts, vox=ps.vox, comms=ps.comms,
+                     mats=ps.mats, dtype=np.float64,
+                     device="cuda").run(verbose=False)
+    for backend in ("tb", "pair"):
+        n6 = tb_sweep_shard.launches
+        e = _open_top_sharded(fcc, np.float64, 2, backend=backend)
+        assert np.array_equal(e.run(verbose=False), u2)
+        assert tb_sweep_shard.launches == n6 + 2 * (e.Nt // e.TB)
+
+
+@pytest.mark.parametrize("fcc", [False, True])
+def test_open_top_energy_route_on_card(cuda, fcc):
+    """The energy route on an open room: the energies within 1e-12 of the
+    plain path's, the receivers bitwise equal to the energy-off run; the
+    balance is the reference's and is not held under 1e-10 here."""
+    k = _open_top_engine(fcc, np.float64, energy_on=True)
+    u = k.run(verbose=False)
+    p = _open_top_engine(fcc, np.float64, energy_on=True, use_kernels=False)
+    p.run(verbose=False)
+    for a in ("H_tot", "E_lost", "E_in"):
+        ref = getattr(p, a)
+        assert np.abs(getattr(k, a) - ref).max() <= 1e-12 * np.abs(ref).max()
+    assert np.abs(k.energy_balance() - p.energy_balance()).max() < 1e-12
+    assert np.array_equal(u, _open_top_engine(fcc, np.float64).run(
+        verbose=False))
 
 
 @pytest.mark.parametrize("name", list(CASES))

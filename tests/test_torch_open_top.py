@@ -4,7 +4,8 @@ An open-top box (`synthetic_box_sim(open_top=True)`) puts the side walls'
 lossy nodes on the top ABC layer, where the reference's order (stencil,
 lossy ODE, ABC, jax_engine.py:664-685) and the kernels' (K1 applies the ABC
 before K2) differ.  The step route passes those nodes' Q to K2, which undoes
-K1's ABC and applies it after the ODE.  Held here, fp64, seeded numpy:
+K1's ABC and applies it after the ODE (the TB, x-slab TB and energy routes:
+test_torch_open_top_routes.py).  Held here, fp64, seeded numpy:
 - `synthetic_box_sim` with `open_top` and `pad_x_to` array-equal to the JAX
   package's, for the argument sets of bench.py's items at reduced sizes;
 - one step from a random state (branch states included) within 1e-12 of
@@ -14,16 +15,16 @@ K1's ABC and applies it after the ODE.  Held here, fp64, seeded numpy:
   JaxEngine(backend="xla"), and the x-slab step route at D = 2 within 1e-12
   of the JAX ShardedEngine; in fp32, 64 steps within 1e-5 of max |u_out|
   of the JAX XLA route in fp32;
-- the TB routes and the energy route refuse such a scene, naming the route
-  and the step route;
 - a closed box keeps no flagged node, and K2's plain update there is the
   parent's, its branch sum now in the kernel's order: bitwise that, within
   a rounding of torch.sum's order, and an all-zero Q changes no bit;
-- `kernels.probe` (K2 against another checkout's, on the card) takes the
-  parent's K2 entry as the new one less its ABC arguments, and refuses to
-  run without a card or for a kernel it does not know.
+- `kernels.probe` (K1, K1e, K2 and K3 against another checkout's, on the
+  card) takes the K2 and K3 entries before their ABC modes as the new ones
+  less their ABC arguments, and refuses to run without a card or for a
+  kernel it does not know.
 """
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -235,26 +236,6 @@ def test_x_slabs_match_jax_sharded_engine():
     assert np.array_equal(u, ref.run(verbose=False))
 
 
-@pytest.mark.parametrize("kw,route", [
-    ({"backend": "tb", "tb": 3}, "tb TB=3"),
-    ({"backend": "pair"}, "tb TB=2"),
-    ({"energy_on": True}, "energy"),
-])
-def test_tb_and_energy_routes_refuse(kw, route):
-    sim = _open_top("cart", 8)
-    with pytest.raises(ValueError, match=f"the {route} route .* the step "
-                                         "route"):
-        TorchEngine(**_kw(sim), dtype=np.float64, device="cpu", **kw)
-
-
-@pytest.mark.parametrize("backend", ["tb", "pair"])
-def test_sharded_tb_routes_refuse(backend):
-    sim = _open_top("cart", 8)
-    with pytest.raises(ValueError, match="x-slab .* the step route"):
-        make_sharded_engine(**_kw(sim), devices=["cpu"] * 2,
-                            dtype=np.float64, backend=backend)
-
-
 def _k2_parent(unew, u0, bnl, ssaf, mat, coef_table, beta, vh, gh, sc,
                ordered):
     """K2's plain update as it stood before the ABC mode, operation for
@@ -321,9 +302,17 @@ def test_closed_box_keeps_k2_as_it_was(dtype):
 def test_probe_refuses_without_a_card(monkeypatch):
     from pffdtd_tpu_torch.kernels import _build, probe
 
-    # the parent's entry: the new one without abcq and lQ1..lQ3
+    # the entries before the ABC modes: K2's without abcq and lQ1..lQ3,
+    # K3's without abcq (the argument before the stream)
     new = _build.SIGNATURES["pf_boundary_update"]
     assert list(new[:13]) + [new[-1]] == probe.K2_BASE_ARGS
+    vp, i, ll, d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_double)
+    k3 = ([i] * 3 + [vp] * 5 + [i] * 8 + [d] * 7 + [vp] * 4 + [ll] + [vp] * 9
+          + [ll, vp, vp, i, vp, vp, i, i])
+    assert probe.K3_BASE_ARGS == k3 + [vp]
+    assert _build.SIGNATURES["pf_tb_sweep"] == k3 + [vp, vp]
+    assert set(probe.PROBES) == {"K1", "K1e", "K2", "K3"}
     with pytest.raises(SystemExit):
         probe.main(["--base", ".", "--kernels", "K9"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
