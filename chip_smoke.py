@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (pffdtd_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py            # one card, every phase
+    python3 chip_smoke.py            # one card, every phase (1-10)
     python3 chip_smoke.py --cards    # phase 5 with one slab per card (4)
 
 Phases, each fatal on failure (no CPU fallback; exit code != 0):
@@ -191,6 +191,21 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    roof K4 alone; over the bench, K1-K7 and K1e each launched.  Its line,
    its seconds and its launches are printed; each kernel's total goes into
    the kernels' record as `launches_bench`.
+10. orient="auto" (`scene.rotate_sim`'s default, the port's rule
+   `scene.orientation_scores`): on the 49 x 19 x 18 m Cartesian shoebox
+   hall (h = 0.046, 1074 x 422 x 400 = 181.3 Mvox, lossy with DEF11) and
+   the headline box, both `kernels.orient_probe`'s scenes, the rule's
+   scores, its choice and the lane fill of each axis on z are printed.
+   The shoebox (and the headline, where "auto" is not "descending") runs
+   128 fp32 steps on the step route rotated by "auto" and by "descending",
+   folded where FCC and sorted, best of 3, launches checked (K1 and K2 a
+   step), the MVPS of both printed with the card; the receivers, in the
+   points' order before sorting, agree within 1e-5 of max |u_out| (the
+   same points, another summation order).  On "auto"'s layout K1 and K2
+   are bitwise equal to their plain versions (`kernel_checks`), and the
+   tb route (TB = 3, launches checked) within 1e-5 of its step route.
+   Each kernel's launches in these runs go into the kernels' record as
+   `launches_orient`.
 The last two lines are the kernels' JSON record (the rows of K2, K3 and K6
 carry their ABC modes' times on the open-top headline box, beside the
 kernel without the mode, bound and launches under "abc_mode") and
@@ -251,9 +266,15 @@ from pffdtd_tpu_torch.kernels.tb import (TBScene, tb_sweep, tb_sweep_plain,
                                          tile_threads)
 from pffdtd_tpu_torch.materials import fit_to_Sabs_oct_11
 from pffdtd_tpu_torch.parallel.sharded_engine import make_sharded_engine
-from pffdtd_tpu_torch.scene import (fold_fcc_sim, make_sloped_room,
-                                    mats_from_DEF_list, pad_x_interior,
-                                    rotate_sim, sort_sim, synthetic_box_sim)
+from pffdtd_tpu_torch.kernels import orient_probe
+from pffdtd_tpu_torch.kernels.orient_probe import (FLOOR_SABS, HALL,
+                                                   HALL_RXYZ, WALLS_SABS,
+                                                   lane_fill)
+from pffdtd_tpu_torch.scene import (boundary_face_counts, fold_fcc_sim,
+                                    make_sloped_room, mats_from_DEF_list,
+                                    orientation_scores, pad_x_interior,
+                                    rotate_sim, rotation_of, sort_sim,
+                                    synthetic_box_sim)
 from pffdtd_tpu_torch.scene_setup import sim_setup_from_room
 from pffdtd_tpu_torch.voxelizer import native
 
@@ -311,16 +332,15 @@ NT_LONG, N_WALLS = 384, 240
 # phase 6e: the modal filter's lengths (samples a channel) and rate
 MODAL_CHECK, MODAL_TIMED, FS = 4800, 48000, 48000.0
 FP64_ROWS = {"K8 modal_recurrence"}     # bound at the fp64 peak
-# phase 7: the sloped hall (Lx, Ly, ceiling at y = 0, at y = Ly, h), its
-# source and receiver offsets (1.4-1.5 m: 128 steps reach about 5.9 m),
-# and the small hall checked against the NumPy oracle
-HALL = (36.0, 28.0, 17.0, 23.0, 0.046)
-HALL_RXYZ = np.array([[1.0, -0.8, 0.6], [-0.9, 1.0, -0.6]])
+# phase 7: the sloped hall is orient_probe's `HALL` (its receivers
+# 1.4-1.5 m from the source, `HALL_RXYZ`: 128 steps reach about 5.9 m, its
+# materials fitted to `WALLS_SABS` and `FLOOR_SABS`); the small hall
+# checked against the NumPy oracle
 HALL_SMALL = (4.0, 3.0, 1.9, 2.5, 0.1)
 HALL_SMALL_SR = (np.array([2.2, 1.6, 1.0]),
                  np.array([[1.5, 1.1, 0.9], [2.9, 2.2, 1.3]]))
-WALLS_SABS = np.linspace(0.05, 0.30, 11)
-FLOOR_SABS = np.linspace(0.02, 0.10, 11)
+# phase 10: orient="auto" against "descending" (orient_probe's scenes)
+ORIENT_SCENES = ("shoebox", "headline")
 # phase 5: (slabs, route) on cuda:0
 SHARDED = ((4, "step", {}), (4, "pair", {}), (4, "tb", {"tb": 3}),
            (2, "step", {}))
@@ -1734,6 +1754,77 @@ def phase9(card):
     return total
 
 
+def oriented(sim, orient):
+    """The scene rotated by `orient` (rotate_sim's), folded when FCC,
+    sorted."""
+    sim = rotate_sim(sim, orient=orient)
+    return sort_sim(fold_fcc_sim(sim) if sim.consts.fcc_flag == 1 else sim)
+
+
+def phase10(gen, card):
+    """orient="auto" against "descending" on the shoebox hall and the
+    headline (see the module docstring); returns {kernel: launches} of its
+    counted runs."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(WRAPPERS, 0)
+    for name in ORIENT_SCENES:
+        sim = orient_probe.SCENES[name](NT)
+        v = sim.vox
+        N, fcc = (v.Nx, v.Ny, v.Nz), int(sim.consts.fcc_flag)
+        faces = boundary_face_counts(v)
+        score = orientation_scores(N, faces, fcc)
+        tr, desc = rotation_of(sim), rotation_of(sim, "descending")
+        print(f"[10] {name} {N} (fcc {fcc}): scores "
+              f"{[f'{x:.0f}' for x in score]} ns a step with "
+              f"x, y, z on z; lane fill {[lane_fill(n) for n in N]}; auto "
+              f"{tr}, descending {desc}", flush=True)
+        if name != ORIENT_SCENES[0] and tr == desc:
+            continue
+        runs = {}
+        for orient in ("auto", "descending"):
+            ps = oriented(sim, orient)
+            want = tr if orient == "auto" else desc
+            require((ps.vox.Nx, ps.vox.Nz) == (N[want[0]], N[want[2]]),
+                    f"{name} {orient}: grid {ps.vox.Nx, ps.vox.Ny, ps.vox.Nz}"
+                    f" is not {want} of {N}")
+            eng = engine(ps, np.float32)
+            u, t, c = run_route(eng, launches(K1=NT, K2=NT))
+            for k, n in named(c).items():
+                total[k] += n
+            g = eng.data.grid
+            runs[orient] = (orient_probe.receivers(ps, u),
+                            g.Nx * g.Ny * g.Nz * NT / t / 1e6)
+            if orient == "auto":
+                chk = kernel_checks(eng, gen)
+                require(all(chk[k][1] == 0 for k in ("K1", "K2")),
+                        f"{name} auto: K1, K2 vs plain {chk}")
+                eng_tb = engine(ps, np.float32, backend="tb", tb=3)
+                ut, tt, ct = run_route(eng_tb, counts_of(eng_tb, 1))
+                for k, n in named(ct).items():
+                    total[k] += n
+                err_tb = rel_err(ut, u)
+                require(err_tb <= 1e-5, f"{name} auto: tb route vs step "
+                        f"{err_tb}")
+                tb_mvps = g.Nx * g.Ny * g.Nz * NT / tt / 1e6
+                del eng_tb
+            del eng
+            torch.cuda.empty_cache()
+        err = rel_err(runs["auto"][0], runs["descending"][0])
+        require(np.isfinite(runs["auto"][0]).all() and err <= 1e-5,
+                f"{name}: auto's receivers vs descending's {err}")
+        (_, m_auto), (_, m_desc) = runs["auto"], runs["descending"]
+        print(f"[10] {name} step route, {NT} fp32 steps, best of 3 ({card})"
+              f": auto {m_auto:.1f} MVPS, descending {m_desc:.1f} "
+              f"({m_auto / m_desc:.4f}x); "
+              f"receivers vs descending's {err:.3e} of max |u_out|; on "
+              f"auto's layout K1 and K2 bitwise equal to their plain "
+              f"versions, the tb route (TB = 3) {tb_mvps:.1f} MVPS, "
+              f"receivers vs its step route {err_tb:.3e}", flush=True)
+    print(f"[10] {time.perf_counter() - t0:.1f} s; launches "
+          f"{named(tuple(total.values()))}", flush=True)
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False: this smoke "
@@ -2156,6 +2247,7 @@ def main():
     torch.cuda.empty_cache()
     p8 = phase8(roof)
     p9 = phase9(card)
+    p10 = phase10(gen, card)
     rec = {"kernels": []}
     for name, (n, err, ms, pms, nbytes, nops, lib_ms) in rows.items():
         b, by = bound_ms(nbytes, nops, fp64=name in FP64_ROWS)
@@ -2167,7 +2259,8 @@ def main():
             "bound_roof_ms": nbytes / roof / 1e6,
             "launches_1e9": p8.get(name, (0, None))[0],
             "ms_1e9": p8.get(name, (0, None))[1],
-            "launches_bench": p9[name.split()[0]]})
+            "launches_bench": p9[name.split()[0]],
+            "launches_orient": p10[name.split()[0]]})
     # the ABC modes: their times on the open-top headline box (phase 2),
     # beside the kernel without the mode on the same inputs (K2: the time
     # measured by k2_abc_check), and their launches on the open-top scenes

@@ -22,7 +22,7 @@ Subpackages
                  built with g++ into ``_build/``), the adjacency check
 - ``materials``  admittance conversions, DEF files, fit_to_Sabs_oct_11
 - ``scene_setup`` room -> voxelized SimData or sim folder
-- ``prep``       rotate (dims descending) / fold / sort of a sim folder
+- ``prep``       rotate ("auto") / fold / sort of a sim folder
 - ``engine``     coefficients, host-side static arrays and tile lists, the
                  TorchEngine runner (chunks, hook, checkpoint/resume), the
                  energy functionals and the NumPy oracle NumpyEngine

@@ -16,11 +16,11 @@ with `--device cpu`, through the kernels' plain versions), or with
 `--engine numpy` through the NumPy oracle `NumpyEngine` on the host, and
 writes `sim_outs.h5` with the port's writer (byte-compatible with the
 reference).  `process` turns it into RIRs (`analysis.process_outputs`); its
-modal air-absorption filter runs on `--device`.  `prep` rotates (dims
-descending), folds (FCC) and sorts a sim folder in place; `fit-material`
-fits 11 DEF branches to 11 octave-band absorptions and writes them to a
-material file.  Each reads and writes HDF5 with h5py, imported inside its
-function.
+modal air-absorption filter runs on `--device`.  `prep` rotates (by
+"auto", as the JAX package's), folds (FCC) and sorts a sim folder in
+place; `fit-material` fits 11 DEF branches to 11 octave-band absorptions
+and writes them to a material file.  Each reads and writes HDF5 with
+h5py, imported inside its function.
 """
 
 from __future__ import annotations
@@ -169,9 +169,11 @@ def main(argv=None):
     pr = sub.add_parser("prep", help="rotate/fold/sort a sim folder")
     pr.add_argument("--data_dir", required=True)
     pr.add_argument("--rotate", action="store_true",
-                    help="permute the grid's dims into descending order "
-                         "(the reference's rule; the JAX package's default "
-                         "scores TPU tilings instead)")
+                    help="permute the grid's dims by \"auto\", as the "
+                         "JAX package's prep: the axis on z that the port's "
+                         "step-route cost model on the H100 scores lowest, "
+                         "kept as the descending order's unless another "
+                         "scores lower by more than a margin")
     pr.add_argument("--fold", action="store_true",
                     help="fold an FCC grid across mid-y (fcc_flag 2)")
     pr.add_argument("--sort", action="store_true",

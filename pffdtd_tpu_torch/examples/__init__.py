@@ -17,7 +17,7 @@ Each takes `--device` (the card by default) and raises without a card, as
 (`models/` and `materials/*.h5`; `data` in the working directory by
 default, where build_material_library writes `materials/`) raise a
 FileNotFoundError naming the path it lacks.  Where an original rotates
-with "auto", these use "descending".
+with "auto", so do these (the port's rule: `scene.orientation_scores`).
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ Reference conditions (benchmarks/README.md): 11-branch materials, impulse
 The setup stays in memory (no HDF5 is written): receivers closer than
 0.6 m to a surface's triangle centroid are dropped (the bundled ones
 assume the reference's fmax >= 3.2 kHz grids), then the grid is rotated
-("descending"), FCC-folded and sorted.  The engine runs twice and the
+("auto", as the original's), FCC-folded and sorted.  The engine runs twice and the
 second run is timed; one JSON line is printed, with `vs_baseline` against
 the reference's 52,512.6 MVPS a GPU (BASELINE.md) and the device it ran
 on.
@@ -49,7 +49,7 @@ def mv_sim(ref=REF, fmax=2000.0, nt=100, fcc=True, mats=MV_MATS):
         rg, pack_mats(rg.mat_str, mats, mat_folder), duration=nt * 1e-4,
         insig_type="impulse", diff_source=True, fmax=fmax,
         PPW=5.6 if fcc else 7.75, fcc_flag=fcc, check_adj=False)
-    sim = rotate_sim(sim, orient="descending")
+    sim = rotate_sim(sim)
     sim = sort_sim(fold_fcc_sim(sim) if fcc else sim)
     v = sim.vox
     print(f"setup {time.time() - t0:.1f}s: grid {v.Nx}x{v.Ny}x{v.Nz} = "

@@ -2,8 +2,8 @@
 examples/mv_fcc_rir.py; reference: test_script_MV_fcc_gpu.py).
 
 The canonical FCC production config: impulse + diff_source from source 3,
-PPW 5.6, 2 s, the sim folder rotated ("descending"), FCC-folded and
-sorted in place, then the post-processing chain with the Stokes (visco)
+PPW 5.6, 2 s, the sim folder rotated ("auto", as the original's),
+FCC-folded and sorted in place, then the post-processing chain with the Stokes (visco)
 air-absorption filter.
 
     python -m pffdtd_tpu_torch.examples.mv_fcc_rir [REF_DATA] [OUT_DIR]

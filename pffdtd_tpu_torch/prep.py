@@ -6,10 +6,11 @@ port's folder reader `io.simdata.read_sim_folder` (JAX's `_load`) and its
 in-memory transforms in `scene.py` (`rotate_sim`, `fold_fcc_sim`,
 `sort_sim`), re-exported here.  They rewrite a sim folder's HDF5 files in
 place (cart_grid.h5 is never touched: it keeps the original orientation);
-h5py is imported when they run.  `rotate_sim_data` puts the grid's dims in
-descending order, the reference's rule, or applies an explicit `tr`: the
-JAX package's default "auto" orientation scores the TPU kernels' tiling
-and has no meaning on the card.
+h5py is imported when they run.  `rotate_sim_data` permutes the grid's
+dims by "auto", the JAX package's default, or applies an explicit `tr`;
+"auto" scores each axis on z with the port's own cost model of its step
+route on the H100 (`orientation_scores`, re-exported here with
+`boundary_face_counts` under the JAX package's names).
 """
 
 from __future__ import annotations
@@ -20,10 +21,13 @@ from pathlib import Path
 import numpy as np
 
 from pffdtd_tpu_torch.io.simdata import SimData, read_sim_folder
-from pffdtd_tpu_torch.scene import fold_fcc_sim, rotate_sim, sort_sim
+from pffdtd_tpu_torch.scene import (boundary_face_counts, fold_fcc_sim,
+                                    orientation_scores, rotate_sim,
+                                    sort_sim)
 
 __all__ = ["copy_sim_data", "rotate_sim_data", "fold_fcc_sim_data",
-           "sort_sim_data", "rotate_sim", "fold_fcc_sim", "sort_sim"]
+           "sort_sim_data", "rotate_sim", "fold_fcc_sim", "sort_sim",
+           "boundary_face_counts", "orientation_scores"]
 
 
 def copy_sim_data(src, dst):
@@ -58,9 +62,9 @@ def _store(folder, sim: SimData):
 
 
 def rotate_sim_data(folder, tr=None):
-    """Rotate a sim folder: dims descending, or the permutation `tr`."""
-    _store(folder, rotate_sim(read_sim_folder(folder), tr=tr,
-                              orient="descending"))
+    """Rotate a sim folder by "auto" (`scene.rotate_sim`), or by the
+    permutation `tr`."""
+    _store(folder, rotate_sim(read_sim_folder(folder), tr=tr))
 
 
 def fold_fcc_sim_data(folder):

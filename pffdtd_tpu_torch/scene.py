@@ -13,9 +13,11 @@ Counterparts, held array-for-array equal to the originals:
 The originals import `h5py` at module level (through `pffdtd_tpu.io.h5`),
 which the card's machine may lack.  The grid, constants and source/receiver
 helpers they build on are the port's own copies (`voxelizer.grid.CartGrid`,
-`consts.SimConsts`, `comms.SimComms`).  `rotate_sim` takes an explicit `tr`
-or the reference's "descending" rule only: the JAX package's "auto"
-orientation scores the TPU kernels' tiling and has no meaning on the card.
+`consts.SimConsts`, `comms.SimComms`).  `boundary_face_counts` is
+pffdtd_tpu/prep.py's.  `rotate_sim` rotates by "auto" by default, as the
+original does, by an explicit `tr`, or by the reference's "descending"
+rule; "auto" is the port's own rule (`orientation_scores`, `auto_tr`): the
+original's prices TPU tilings, this one the port's step route on the H100.
 """
 
 from __future__ import annotations
@@ -250,17 +252,126 @@ def _adj_column_perm(tr, NN):
     return np.argsort(jj)
 
 
-def rotate_sim(sim: SimData, tr=None, orient: str = "descending") -> SimData:
-    """Permute grid dims: an explicit `tr`, or dims in descending order
-    (the reference's rule, rotate_sim_data.py:30-130)."""
+def boundary_face_counts(vox) -> np.ndarray:
+    """Cut boundary legs per axis (x, y, z): the staircase area profile."""
+    cut = ~np.asarray(vox.adj_bn, bool)
+    if cut.shape[1] == 6:  # cart leg order: +x -x +y -y +z -z
+        ax = np.array([0, 0, 1, 1, 2, 2])
+        return np.array([int(cut[:, ax == k].sum()) for k in range(3)])
+    # FCC: 12 diagonal legs, each spans two axes equally
+    return (cut @ np.abs(FCC_VECTORS)).sum(0).astype(np.int64)
+
+
+# The port's step route on the H100, ns a step (`orientation_scores`),
+# fitted to the best CUDA-event windows of K1 and K2 in
+# `python -m pffdtd_tpu_torch.kernels.orient_probe` (NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md): K1 a point of the interior, by stencil (7-point
+# Cartesian, 13-point FCC), and a lane K1's blocks leave idle past the end
+# of a z-run on Cartesian grids (on FCC grids the idle lanes measured
+# -0.00008 ns each, within the windows' spread: no term); K2 a lossy node,
+# and again for each on a wall normal to z, whose nodes lie Nz apart in
+# flat order, so that each u access takes a sector of its own.
+K1_NS_PER_POINT = {False: 0.00561, True: 0.00821}
+K1_NS_PER_IDLE_LANE = 0.00162
+K2_NS_PER_NODE = 0.0809
+K2_NS_PER_Z_NODE = 0.0784
+# "auto" leaves "descending"'s layout only for a score lower by more than
+# this share of its own: the step route's best of 3 moved by up to 0.58%
+# (1.02% at 1.049 Gvox) between two engines on one layout in one run
+ORIENT_MARGIN = 0.01
+LANES = 128  # K1's threads a block: one z-run of a (y, x) row
+
+
+def tr_for(N, z: int, fcc: int) -> tuple:
+    """The permutation that puts axis z on z: of the other two, the longer
+    goes on x; a folded grid (fcc 2) keeps its half-y axis on y."""
+    rest = sorted((j for j in range(3) if j != z), key=lambda j: -N[j])
+    if fcc == 2 and rest[1] != 1:
+        rest = [j for j in range(3) if j not in (z, 1)] + [1]
+    return (rest[0], rest[1], z)
+
+
+def _wall_nodes(faces, fcc: int) -> tuple:
+    """(boundary nodes, those on walls normal to each axis) from the cut
+    legs per axis: a Cartesian node cuts one leg along its wall's normal;
+    an FCC node cuts four, which span the normal four times and each other
+    axis twice (faces[k] = 2 n_k + 2 n)."""
+    f = np.asarray(faces, np.float64)
+    if not fcc:
+        return f.sum(), f
+    n = f.sum() / 8
+    return n, f / 2 - n
+
+
+def orientation_scores(N, faces, fcc: int, lossy: bool = True) -> list:
+    """ns a step of the port's step route (K1 + K2) with axis k on z, for
+    k in 0..2, from the grid's dims N, its cut legs per axis `faces`
+    (`boundary_face_counts`) and its fcc_flag (1: folded after the
+    rotation); inf for the half-y axis of a folded grid (fcc 2).  K2 runs
+    on the in-room half of the boundary nodes where `lossy`."""
+    nodes, normal = _wall_nodes(faces, fcc)
+    score = []
+    for k in range(3):
+        if fcc == 2 and k == 1:
+            score.append(np.inf)
+            continue
+        nx, ny, nz = (N[j] for j in tr_for(N, k, fcc))
+        if fcc == 1:
+            ny = ny // 2 + 1   # the fold halves the axis that lands on y
+        points = (nx - 2) * (ny - 2) * (nz - 2)
+        s = K1_NS_PER_POINT[bool(fcc)] * points
+        if not fcc:
+            idle = -(-(nz - 2) // LANES) * LANES - (nz - 2)
+            s += K1_NS_PER_IDLE_LANE * (nx - 2) * (ny - 2) * idle
+        if lossy:
+            s += (K2_NS_PER_NODE * nodes + K2_NS_PER_Z_NODE * normal[k]) / 2
+        score.append(float(s))
+    return score
+
+
+def _descending(N) -> tuple:
+    """The dims in descending order (the reference's rule,
+    rotate_sim_data.py:30-130)."""
+    return tuple(int(t) for t in np.argsort(N)[::-1])
+
+
+def auto_tr(N, faces, fcc: int, lossy: bool = True) -> tuple:
+    """The "auto" permutation: "descending"'s, unless another axis on z
+    scores less by more than ORIENT_MARGIN of its score (or "descending"
+    would move a folded grid's half-y axis off y), then `tr_for` of the
+    axis that scores least."""
+    desc = _descending(N)
+    score = orientation_scores(N, faces, fcc, lossy)
+    best = int(np.argmin(score))
+    kept = score[desc[2]]
+    if np.isfinite(kept) and score[best] >= (1 - ORIENT_MARGIN) * kept:
+        if fcc != 2 or desc[1] == 1:
+            return desc
+        best = desc[2]
+    return tr_for(N, best, fcc)
+
+
+def rotation_of(sim: SimData, orient: str = "auto") -> tuple:
+    """The permutation `rotate_sim(sim, orient=orient)` applies: the dims in
+    descending order (orient="descending") or `auto_tr`'s choice on the
+    port's step-route cost model; "auto" takes "descending" on a scene
+    with no boundary node."""
+    if orient not in ("auto", "descending"):
+        raise ValueError(f"orient={orient!r}: 'auto' or 'descending'")
+    vox = sim.vox
+    N = (vox.Nx, vox.Ny, vox.Nz)
+    if orient == "auto" and vox.Nb:
+        return auto_tr(N, boundary_face_counts(vox), int(sim.consts.fcc_flag),
+                       bool(np.any(np.asarray(vox.mat_bn) >= 0)))
+    return _descending(N)
+
+
+def rotate_sim(sim: SimData, tr=None, orient: str = "auto") -> SimData:
+    """Permute grid dims: by an explicit `tr`, else by `rotation_of(sim,
+    orient)`."""
     vox, comms = sim.vox, sim.comms
     N = (vox.Nx, vox.Ny, vox.Nz)
-    if tr is None:
-        if orient != "descending":
-            raise ValueError(f"orient={orient!r}: give tr or 'descending'")
-        tr = tuple(int(t) for t in np.argsort(N)[::-1])
-    else:
-        tr = tuple(tr)
+    tr = rotation_of(sim, orient) if tr is None else tuple(tr)
     if tr == (0, 1, 2):
         return sim
     Nt_dims = tuple(N[t] for t in tr)

@@ -159,7 +159,10 @@ def sim_setup(
     save_folder_gpu=None,
     **kw,
 ):
-    """File-based setup entry point mirroring the reference sim_setup API."""
+    """File-based setup entry point mirroring the reference sim_setup API.
+
+    save_folder_gpu: a copy of the folder rotated by "auto" (as the JAX
+    package's), folded when FCC, and sorted."""
     rg = RoomGeo(model_json_file, az_el=rot_az_el, bmin=bmin, bmax=bmax)
     rg.print_stats()
     mats = pack_mats(rg.mat_str, mat_files_dict, mat_folder)

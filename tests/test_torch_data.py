@@ -132,12 +132,6 @@ def test_engine_data_equal(name, dtype):
     assert not abc_q(d.bnl_ixyz, d.grid).any() and d.abcq_bnl is None
 
 
-def test_rotate_auto_is_refused():
-    sim = scene.synthetic_box_sim(1.0, 0.8, 0.7, h=0.1, Nt=4)
-    with pytest.raises(ValueError):
-        scene.rotate_sim(sim, orient="auto")
-
-
 _ISOLATED = r"""
 import sys
 
@@ -163,6 +157,7 @@ import pffdtd_tpu_torch.engine.torch_engine
 import pffdtd_tpu_torch.viz
 import pffdtd_tpu_torch.io.h5
 import pffdtd_tpu_torch.kernels.k1e_probe
+import pffdtd_tpu_torch.kernels.orient_probe
 import pffdtd_tpu_torch.kernels.probe
 import pffdtd_tpu_torch.kernels.stream
 import pffdtd_tpu_torch.kernels.tb

@@ -49,6 +49,8 @@ from pffdtd_tpu_torch.examples import (CTK_MATS, CTK_MODEL, MV_MATS,
                                        ctk_cart_viz, mv_fcc_rir, mv_fcc_viz,
                                        setup_1e9)
 from pffdtd_tpu_torch.geometry.exporter import export_box_room
+from pffdtd_tpu_torch.io.simdata import read_sim_folder
+from pffdtd_tpu_torch.scene import rotation_of
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parent.parent
@@ -150,7 +152,8 @@ def test_material_examples_equal_jax(library, tmp_path):
 # ------------------------------------------------------------------ RIRs
 def _jax_rir(ref, out, model, mats, source_num, fcc, fmax, ppw, modal):
     """The original's pipeline on the JAX package, fp64, xla; FCC folders
-    rotated "descending" (the port's rule), folded and sorted."""
+    rotated by the port's "auto" choice (`rotation_of` of the folder),
+    folded and sorted."""
     jax_sim_setup(model_json_file=ref / model, mat_folder=ref / "materials",
                   mat_files_dict=mats, source_num=source_num,
                   insig_type="impulse", diff_source=True, duration=DURATION,
@@ -158,7 +161,7 @@ def _jax_rir(ref, out, model, mats, source_num, fcc, fmax, ppw, modal):
                   save_folder=out)
     if fcc:
         _store(out, sort_sim(fold_fcc_sim(rotate_sim(
-            _load(out), orient="descending"))))
+            _load(out), tr=rotation_of(read_sim_folder(out))))))
     eng = JaxEngine(out, dtype=np.float64, backend="xla")
     eng.run(verbose=False)
     eng.save_outputs(out)
