@@ -68,7 +68,14 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    TB = 3 and pair (TB = 2) routes over 29 steps (not a multiple of TB, so
    the tail steps run), vs the plain single-step path: receivers <= 1e-12;
    the same three routes of the sharded engine at D = 2 (K5, K6), vs the
-   plain path on the same padded grid, <= 1e-12.
+   plain path on the same padded grid, <= 1e-12.  Then the same scenes with
+   the diagonal shift set by hand (fp32_eps = 1e-3; fp64 takes 0 unless
+   told): the step, tb (TB = 3), pair and energy routes and the x-slab step
+   route at D = 2, launches checked, vs the plain path with the same shift
+   (on the padded grid for the slabs) <= 1e-12, the energies <= 1e-12 of
+   their largest magnitude, the balance printed (the functional keeps l2
+   unshifted: it does not close); the plain path at 1e-3 more than 1e-9 of
+   max |u_out| off its run at 0.
 4. The main path at full size: the bench's headline scene, a lossy folded-FCC
    box of 36 x 28 x 23 m at h = 0.046 (11-branch material), rotated
    "descending", folded and sorted: a 792 x 310 x 510 grid, about 125 Mvox,
@@ -81,7 +88,16 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    can reach, and would read exact zeros.  Then the headline box without
    its top wall (phase 2's) on the tb route (TB = 3: 42 K3 sweeps in the
    ABC mode + 2 single steps) and on the step route, launches checked,
-   receivers bitwise equal.
+   receivers bitwise equal.  The dashboard's air / boundary split on the
+   step route: 128 steps in chunks of 32, quiet and verbose, each with its
+   device peak memory over what was allocated before it; the verbose run's
+   progress lines carry the split (printed), its launches are K1 128 and
+   K2 128 plus the probe's warm launch and 30 timed ones, its receivers and
+   final state are bitwise the quiet run's and the one-chunk run's, and
+   `bn_ms_per_step` is within a factor of 1.5 of phase 2's K2 time.  Then
+   the probe once more on the final state, its own peak memory over what
+   was allocated before it printed beside vh's and gh's bytes (and the
+   verbose run's peak over the quiet run's).
 5. The x-slab path at full size: the headline scene through
    make_sharded_engine with every slab on cuda:0 (the halo exchange is then
    a copy on the card): D = 4 on the step, pair and tb (TB = 3) routes and
@@ -206,7 +222,8 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    tb route (TB = 3, launches checked) within 1e-5 of its step route.
    Each kernel's launches in these runs go into the kernels' record as
    `launches_orient`.
-The last two lines are the kernels' JSON record (the rows of K2, K3 and K6
+The run's total seconds are printed before the card's line.  The last
+two lines are the kernels' JSON record (the rows of K2, K3 and K6
 carry their ABC modes' times on the open-top headline box, beside the
 kernel without the mode, bound and launches under "abc_mode") and
 {"ok": true, "device": {...}}.  The work sits under `__main__`, so importing
@@ -215,8 +232,11 @@ this file runs nothing.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import re
 import os
 import signal
 import subprocess
@@ -238,7 +258,8 @@ from pffdtd_tpu_torch.consts import SimConsts
 from pffdtd_tpu_torch.engine.energy import EnergyScene
 from pffdtd_tpu_torch.engine.numpy_ref import NumpyEngine
 from pffdtd_tpu_torch.bench import METRIC as BENCH_METRIC, WRAPPERS, rel_err
-from pffdtd_tpu_torch.engine.torch_engine import TorchEngine, pick_route
+from pffdtd_tpu_torch.engine.torch_engine import (BN_ITERS, TorchEngine,
+                                                pick_route)
 from pffdtd_tpu_torch.examples.setup_1e9 import StageTimer, peak_rss_gb
 from pffdtd_tpu_torch.io.simdata import MMb
 from pffdtd_tpu_torch.kernels import _build
@@ -280,6 +301,11 @@ from pffdtd_tpu_torch.voxelizer import native
 
 SEED = 0
 NT = 128
+# phase 3: the diagonal shift set by hand
+EPS_SET = 1e-3
+# phase 4: the split's probe, K2 timed over BN_ITERS launches after one
+# warm launch, within BN_FACTOR of phase 2's K2
+BN_FACTOR = 1.5
 NT_SMALL = 29
 # the bench's 11-branch material (bench.py:60-63)
 DEF11 = np.array([[d, e, f] for d, e, f in zip(
@@ -924,6 +950,117 @@ def run_route(eng, want, reps=3):
     require(np.isfinite(u).all() and np.abs(u).max() > 0,
             "main path: u_out not finite or all zero")
     return u, min(t for t, _ in runs), want
+
+
+def eps_check(n, s):
+    """Phase 3 with fp32_eps = EPS_SET on the small fp64 scene s: the step,
+    tb (TB = 3), pair and energy routes and the x-slab step route at D = 2,
+    launches checked, against the plain path with the same shift."""
+    eps = {"fp32_eps": EPS_SET}
+    up = engine(s, np.float64, use_kernels=False, **eps).run(
+        nt=NT_SMALL, verbose=False)
+    u0 = engine(s, np.float64, use_kernels=False).run(nt=NT_SMALL,
+                                                      verbose=False)
+    moved = rel_err(up, u0)
+    require(moved > 1e-9, f"{n}: fp32_eps {EPS_SET} moved the plain path by "
+            f"{moved} only")
+    errs, engs = {}, {}
+    for b in ("step", "tb", "pair", "energy"):
+        e = engs[b] = engine(s, np.float64, tb=3, energy_on=b == "energy",
+                             backend="step" if b == "energy" else b, **eps)
+        require(e.data.fp32_eps == EPS_SET, f"{n} {b}: fp32_eps "
+                f"{e.data.fp32_eps}")
+        reset_counts()
+        u = e.run(nt=NT_SMALL, verbose=False)
+        c = counts()
+        want = (energy_launches(NT_SMALL)[0] if b == "energy"
+                else counts_of(e, 1, NT_SMALL))
+        require(c == want, f"{n} {b} fp32_eps: launches {named(c)}")
+        errs[b] = rel_err(u, up)
+    ep = engine(s, np.float64, energy_on=True, use_kernels=False, **eps)
+    ep.run(nt=NT_SMALL, verbose=False)
+    ek = engs["energy"]
+    for a in ("H_tot", "E_lost", "E_in"):
+        errs[a] = rel_err(getattr(ek, a), getattr(ep, a))
+    ps = pad_x_interior(s, 2)
+    up2 = engine(ps, np.float64, use_kernels=False, **eps).run(
+        nt=NT_SMALL, verbose=False)
+    ex = sharded(s, np.float64, 2, **eps)
+    reset_counts()
+    u2 = ex.run(nt=NT_SMALL, verbose=False)
+    c = counts()
+    require(c == counts_of(ex, 2, NT_SMALL), f"{n} x2 fp32_eps: launches "
+            f"{named(c)}")
+    errs["x2 step"] = rel_err(u2, up2)
+    print(f"[3] {n} fp64 fp32_eps={EPS_SET}: vs the plain path {errs}; the "
+          f"plain path {moved:.3e} off its run at 0; balance "
+          f"{np.abs(ek.energy_balance()).max():.3e} (plain "
+          f"{np.abs(ep.energy_balance()).max():.3e}: the functional keeps "
+          f"l2 unshifted)", flush=True)
+    require(max(errs.values()) <= 1e-12, f"{n} fp32_eps: {errs}")
+
+
+def split_check(eng, k2_ms, u_one):
+    """The air / boundary split on the step engine `eng`, whose
+    bn_ms_per_step has not run: NT steps in chunks of NT / 4, quiet, then
+    verbose (stdout captured), each with its peak memory over what was
+    allocated before it.  The verbose run must launch K1 NT times and K2 NT
+    plus the probe's 1 + BN_ITERS times, print the split on every progress
+    line, and leave receivers and final state bitwise the quiet run's, and
+    the receivers bitwise `u_one` (a one-chunk run's); bn_ms_per_step within
+    BN_FACTOR of phase 2's K2 time k2_ms.  Returns bn (ms), bn2 (a second
+    probe on the final state), pct (the lines' bn %), run_extra (the
+    verbose run's peak bytes over the quiet run's), own (the second
+    probe's peak bytes over what was allocated before it), vhgh (vh's and
+    gh's bytes), t_q and t_v (the runs' seconds)."""
+    require(eng._bn_ms is None, "split_check: the probe already ran")
+    chunk = NT // 4
+
+    def run(verbose):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            u = eng.run(nt=NT, chunk=chunk, verbose=verbose)
+        return u, torch.cuda.max_memory_allocated() - before, out.getvalue()
+
+    u_q, peak_q, _ = run(False)
+    t_q = eng.elapsed
+    st_q = [eng.state[k].clone() for k in (0, 1, 3, 4)]
+    reset_counts()
+    u_v, peak_v, text = run(True)
+    c = counts()
+    want = launches(K1=NT, K2=NT + 1 + BN_ITERS)
+    require(c == want, f"split run: launches {named(c)}, want {named(want)}")
+    lines = [ln for ln in text.splitlines() if "MVPS inst" in ln]
+    for ln in lines:
+        print(f"[4] {ln}")
+    found = [re.search(r", air \d+% / bn (\d+)%$", ln) for ln in lines]
+    require(len(lines) == NT // chunk - 1 and all(found),
+            f"split run: {sum(map(bool, found))} of {len(lines)} progress "
+            "lines carry the split")
+    pct = [int(m.group(1)) for m in found]
+    require(np.array_equal(u_v, u_q) and np.array_equal(u_v, u_one),
+            "the split's probe changed the receivers")
+    require(all(torch.equal(eng.state[k], a)
+                for k, a in zip((0, 1, 3, 4), st_q)),
+            "the split's probe changed the final state")
+    bn = eng.bn_ms_per_step()
+    require(np.isfinite(bn) and 1 / BN_FACTOR <= bn / k2_ms <= BN_FACTOR,
+            f"bn_ms_per_step {bn} ms against phase 2's K2 {k2_ms} ms")
+    vhgh = 2 * eng.state[3].numel() * eng.state[3].element_size()
+    # the probe alone, once more on the final state: its own peak over
+    # what the run left allocated
+    t_v = eng.elapsed
+    eng._bn_ms = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    bn2 = eng.bn_ms_per_step()
+    own = torch.cuda.max_memory_allocated() - before
+    return SimpleNamespace(bn=bn, bn2=bn2, pct=pct, run_extra=peak_v - peak_q,
+                           own=own, vhgh=vhgh, t_q=t_q, t_v=t_v)
 
 
 def bound_ms(nbytes, nops=0.0, fp64=False):
@@ -1826,6 +1963,7 @@ def phase10(gen, card):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is False: this smoke "
                            "test runs on an NVIDIA card only")
@@ -2138,6 +2276,8 @@ def main():
             require(np.isfinite(uk).all(), f"{n} x2 {kw}: not finite")
             require(err <= 1e-12, f"{n} x2 {kw}: fp64 route disagrees: "
                     f"{err}")
+    for n, s in small.items():
+        eps_check(n, s)
 
     # ---- 4. the main path: 128 fp32 steps per route, best of 3
     tb3 = NT // 3, NT % 3
@@ -2145,6 +2285,18 @@ def main():
                                                   K3=tb3[0]))
     u_pr, t_pr, c_pr = run_route(eng_pair, launches(K3=NT // 2))
     u_k, t_k, c_k = run_route(eng, launches(K1=NT, K2=NT))
+    # the dashboard's air / boundary split on the step route
+    sp = split_check(eng, main_chk["K2"][2], u_k)
+    print(f"[4] split: bn_ms_per_step {sp.bn:.4f} ms (again on the final "
+          f"state {sp.bn2:.4f}), phase 2's K2 {main_chk['K2'][2]:.4f} ms "
+          f"({sp.bn / main_chk['K2'][2]:.3f}x); bn {sp.pct} % of each "
+          f"chunk's ms a step; receivers and final state bitwise the quiet "
+          f"run's; extra peak memory: the probe's own {sp.own / 1e6:.1f} MB "
+          f"beside vh + gh {sp.vhgh / 1e6:.1f} MB, the verbose run's over "
+          f"the quiet run's {sp.run_extra / 1e6:.1f} MB; quiet "
+          f"{npts * NT / sp.t_q / 1e6:.1f} MVPS, verbose "
+          f"{npts * NT / sp.t_v / 1e6:.1f} (chunks of {NT // 4}, the probe "
+          f"outside the loop's time)", flush=True)
     eng.use_kernels = False
     reset_counts()
     t_p = []
@@ -2279,6 +2431,9 @@ def main():
             "launches": abc[name.split()[0]],
             "flagged": getattr(x, "nflag", k2_abc.nflag),
             "nodes": getattr(x, "nbl", nl)}
+    k2_row = next(r for r in rec["kernels"] if r["name"].startswith("K2"))
+    k2_row["bn_ms_per_step"] = sp.bn
+    print(f"[end] {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(card)   # again, where the end of a long output keeps it
     print(json.dumps(rec))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,7 @@ pffdtd_tpu/cli.py):
         [--f64] [--energy] [--nsteps N]
         [--checkpoint FILE --checkpoint_every K [--resume]]
         [--plot [--show]] [--device cuda|cpu] [--backend auto|step|pair|tb]
-        [--tb N]
+        [--tb N] [--fp32_eps EPS]
     python -m pffdtd_tpu_torch.cli process --data_dir DIR ... [--device D]
     python -m pffdtd_tpu_torch.cli prep --data_dir DIR [--rotate] [--fold]
         [--sort]
@@ -50,7 +50,7 @@ def _cmd_sim(args):
     dtype = np.float64 if args.f64 else np.float32
     eng = TorchEngine(args.data_dir, dtype=dtype, device=args.device,
                       backend=args.backend, tb=args.tb,
-                      energy_on=args.energy)
+                      energy_on=args.energy, fp32_eps=args.fp32_eps)
     on_chunk = None
     chunk = args.nsteps
     if args.plot:
@@ -144,6 +144,11 @@ def main(argv=None):
                          "the faster route on the H100)")
     ps.add_argument("--tb", type=int, default=3,
                     help="steps per sweep of --backend tb (2..8)")
+    ps.add_argument("--fp32_eps", type=float, default=None,
+                    help="the stencil's diagonal shift, sl2 = (1 + EPS) "
+                         "lfac l2 (default: FP32_EPS in fp32, 0 with "
+                         "--f64); 0 runs fp32 without it, to study the "
+                         "drift it prevents")
     ps.set_defaults(fn=_cmd_sim)
 
     pp = sub.add_parser("process", help="post-process sim_outs.h5 into RIRs")

@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from pffdtd_tpu_torch.engine.coeffs import FP32_EPS, MatCoeffs, SchemeCoeffs
+from pffdtd_tpu_torch.io.h5 import SimFolder
 
 
 @dataclass
@@ -239,15 +240,24 @@ def abc_q(ixyz, grid: GridSpec) -> np.ndarray:
 
 
 class EngineData:
-    """Static arrays of one scene: grid, adjacency, lossy nodes, sources."""
+    """Static arrays of one scene: grid, adjacency, lossy nodes, sources.
 
-    def __init__(self, consts, vox, comms, mats, dtype=np.float32):
+    fp32_eps: the stencil's diagonal shift, sl2 = (1 + fp32_eps) lfac l2
+    (jax_engine.py:89-97): None takes FP32_EPS in fp32 and 0 in fp64; an
+    explicit value is used in both precisions.  `self.fp32_eps` holds the
+    value in use."""
+
+    def __init__(self, consts, vox, comms, mats, dtype=np.float32,
+                 fp32_eps: float | None = None):
         self.dtype = np.dtype(dtype)
         if self.dtype not in (np.float32, np.float64):
             raise ValueError(f"dtype {self.dtype}: float32 or float64 only")
         self.fcc = consts.fcc_flag > 0
-        eps = FP32_EPS if self.dtype == np.float32 else 0.0
-        self.sc = SchemeCoeffs.make(consts.l, consts.l2, self.fcc, eps=eps)
+        if fp32_eps is None:
+            fp32_eps = self.default_fp32_eps(self.dtype)
+        self.fp32_eps = fp32_eps
+        self.sc = SchemeCoeffs.make(consts.l, consts.l2, self.fcc,
+                                    eps=fp32_eps)
         self.mc = MatCoeffs.from_mats(mats, consts.Ts)
         self.consts = consts
         self.grid = GridSpec(Nx=int(vox.Nx), Ny=int(vox.Ny), Nz=int(vox.Nz),
@@ -305,3 +315,15 @@ class EngineData:
             self.infac = max_in / 2.0 ** pow2 if max_in > 0 else 1.0
         else:
             self.infac = 1.0
+
+    @staticmethod
+    def default_fp32_eps(dtype) -> float:
+        """The shift that fp32_eps=None stands for in `dtype`."""
+        return FP32_EPS if np.dtype(dtype) == np.float32 else 0.0
+
+    @classmethod
+    def from_folder(cls, folder, **kw) -> "EngineData":
+        """From a sim folder's four inputs (`io.h5.SimFolder`, needs h5py);
+        kw as the constructor's (jax_engine.py:263-266)."""
+        sf = SimFolder(folder)
+        return cls(sf.consts, sf.vox, sf.comms, sf.mats, **kw)

@@ -55,7 +55,13 @@ the functional has no term for a node both lossy and on an ABC layer
 `run()` also takes JAX's per-chunk hook and checkpoint/resume
 (jax_engine.py:1181-1293): a checkpoint is an `.npz` of named arrays, the
 state at a chunk's end with the receiver (and energy) rows so far, and the
-scene's grid, dtype and route, which a resume must match.
+scene's grid, dtype, route and `fp32_eps`, which a resume must match.  On
+the step route its progress lines carry the reference dashboard's air /
+boundary split (fdtd_common.h:106-190), from `bn_ms_per_step`, K2 timed
+alone, as JAX's do (jax_engine.py:1133-1179, 1240-1249).
+
+`fp32_eps` is the stencil's diagonal shift (`EngineData`): None takes
+FP32_EPS in fp32 and 0 in fp64, as the JAX engines do.
 """
 
 from __future__ import annotations
@@ -86,6 +92,8 @@ from pffdtd_tpu_torch.kernels.tb import TBScene, tb_sweep, tb_sweep_plain
 _TORCH_DTYPE = {np.dtype(np.float32): torch.float32,
                 np.dtype(np.float64): torch.float64}
 BACKENDS = ("auto", "step", "pair", "tb")
+# K2 launches `bn_ms_per_step` times after its warm launch (JAX's 30)
+BN_ITERS = 30
 
 
 def pick_route(backend: str, tb: int = 3):
@@ -114,7 +122,8 @@ class TorchEngine:
     def __init__(self, folder=None, *, consts=None, vox=None, comms=None,
                  mats=None, dtype=np.float32, device="cuda",
                  backend: str = "auto", tb: int = 3,
-                 use_kernels: bool = True, energy_on: bool = False):
+                 use_kernels: bool = True, energy_on: bool = False,
+                 fp32_eps: float | None = None):
         if folder is not None:
             sim = read_sim_folder(folder)
             consts, vox, comms, mats = sim.consts, sim.vox, sim.comms, \
@@ -125,11 +134,14 @@ class TorchEngine:
             raise RuntimeError("device cuda: torch.cuda.is_available() is "
                                "False; pass device='cpu' to run the plain "
                                "PyTorch versions on the CPU")
-        self.data = d = EngineData(consts, vox, comms, mats, dtype=dtype)
+        self.data = d = EngineData(consts, vox, comms, mats, dtype=dtype,
+                                   fp32_eps=fp32_eps)
         self.dtype = _TORCH_DTYPE[d.dtype]
         self.Nt = d.Nt
         self.use_kernels = use_kernels
         self.backend, self.TB = pick_route(backend, tb)
+        self.state = None     # a run's state, from its start
+        self._bn_ms = None    # bn_ms_per_step's value, once measured
         if energy_on and self.TB is not None:
             raise ValueError(f"energy_on: the step route only (backend "
                              f"{backend!r} takes TB={self.TB} steps a "
@@ -262,6 +274,51 @@ class TorchEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def bn_ms_per_step(self) -> float | None:
+        """K2's time a step (ms), measured once and cached; None where the
+        JAX engine's is (jax_engine.py:1133-1179): a TB route, whose sweep
+        fuses the boundary, energy_on, or a scene without lossy nodes.
+
+        On a card, `BN_ITERS` launches after one warm launch, between CUDA
+        events on the current stream; on the CPU, the plain version under
+        `perf_counter`.  K2 updates unew, vh and gh in place, so it runs on
+        the output scratch of the next step, `self.state[2]`, whose
+        interior K1 overwrites whole before anything reads it (the lossy
+        nodes are interior points), reading u^{n-1} = `self.state[0]`, on
+        copies of vh and gh: the run's results stay bitwise as they are,
+        at 2 * MMb * Nbl extra values.  Before a run (no state) it runs on
+        two zeroed grids and zeroed branch states, as JAX's does."""
+        d = self.data
+        if self.TB is not None or self.energy_on or not d.Nbl:
+            return None
+        if self._bn_ms is not None:
+            return self._bn_ms
+        if self.state is None:
+            unew, u0 = self._zeros(*d.grid.shape), self._zeros(*d.grid.shape)
+            vh, gh = self._zeros(MMb, d.Nbl), self._zeros(MMb, d.Nbl)
+        else:
+            unew, u0 = self.state[2], self.state[0]
+            vh, gh = self.state[3].clone(), self.state[4].clone()
+        k2 = boundary_update if self.use_kernels else boundary_update_plain
+        args = (unew, u0, self.bnl, self.ssaf, self.mat, self.coef_table,
+                self.beta, vh, gh, d.sc, self.abcq)
+        k2(*args)                                # warm
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            e0.record(stream)
+            for _ in range(BN_ITERS):
+                k2(*args)
+            e1.record(stream)
+            e1.synchronize()
+            self._bn_ms = e0.elapsed_time(e1) / BN_ITERS
+        else:
+            t0 = time.perf_counter()
+            for _ in range(BN_ITERS):
+                k2(*args)
+            self._bn_ms = (time.perf_counter() - t0) / BN_ITERS * 1e3
+        return self._bn_ms
+
     def run(self, nt: int | None = None, verbose: bool = True,
             chunk: int | None = None, checkpoint_every: int | None = None,
             checkpoint_path=None, resume: bool = False, on_chunk=None):
@@ -277,16 +334,19 @@ class TorchEngine:
         jax_engine.py:1044-1056: u_out is the same either way, and here
         the final state is exactly step nt.)  After each chunk:
         - on_chunk(n, state) is called, n the steps done, state[1] = u^n;
-        - with verbose, a progress line is printed (except after the last);
+        - with verbose, a progress line is printed (except after the last),
+          with the air / boundary split on the step route: bn = K2's share
+          of the chunk's ms a step, `bn_ms_per_step` (measured at the first
+          line) over it, at most 100%;
         - every `checkpoint_every` chunks the state is saved to
           `checkpoint_path` (`save_checkpoint`).
         Only these wait for the device: without them the loop never does.
         resume=True with an existing `checkpoint_path` restarts from the
         step it holds (`load_checkpoint`), keeping its receiver rows.
 
-        `self.elapsed` times the loop without the hook and the checkpoint
-        I/O, which `self.host_seconds` holds; `self.mvps` is over the steps
-        this call ran."""
+        `self.elapsed` times the loop without the hook, the checkpoint I/O
+        and the split's K2 probe, which `self.host_seconds` holds;
+        `self.mvps` is over the steps this call ran."""
         d = self.data
         g = d.grid
         npts = g.Nx * g.Ny * g.Nz
@@ -297,7 +357,7 @@ class TorchEngine:
         out = torch.zeros((nt, d.out_ixyz.size), dtype=self.dtype,
                           device=self.device)
         en = self._energy_carry(nt) if self.energy_on else None
-        state = self.init_state()
+        self.state = state = self.init_state()
         n0 = 0
         if resume and checkpoint_path and Path(checkpoint_path).exists():
             n0 = self.load_checkpoint(checkpoint_path, state, out, en)
@@ -337,10 +397,16 @@ class TorchEngine:
             self._sync()
             t = time.perf_counter()
             if show:
+                split = ""
+                bn_ms = self.bn_ms_per_step()
+                if bn_ms is not None:
+                    bn = min(100.0, 100.0 * bn_ms / ((t - tb) / (n - c0)
+                                                     * 1e3))
+                    split = f", air {100 - bn:.0f}% / bn {bn:.0f}%"
                 print(f"--ENGINE(torch): {n}/{nt} [{100 * n / nt:.0f}%] "
                       f"{npts * (n - c0) / (t - tb) / 1e6:.1f} MVPS inst, "
                       f"{npts * (n - n0) / (t - t0 - t_out) / 1e6:.1f} "
-                      f"MVPS avg", flush=True)
+                      f"MVPS avg{split}", flush=True)
             if on_chunk is not None:
                 on_chunk(n, state)
             if ckpt:
@@ -350,7 +416,6 @@ class TorchEngine:
         self._sync()
         self.elapsed = time.perf_counter() - t0 - t_out
         self.host_seconds = t_out
-        self.state = state
         self.u_out = np.float64(out.T.cpu().numpy()) * d.infac
         if en is not None:   # energies scale back by infac**2
             e = lambda t: np.float64(t.cpu().numpy()) * d.infac ** 2
@@ -389,6 +454,7 @@ class TorchEngine:
                 "route": np.array(self.backend if self.TB is None
                                   else f"tb{self.TB}"),
                 "energy": np.array(bool(self.energy_on)),
+                "fp32_eps": np.array(float(d.fp32_eps)),
                 "counts": np.array([d.Nbl, d.in_ixyz.size, d.out_ixyz.size],
                                    np.int64)}
 
@@ -419,12 +485,17 @@ class TorchEngine:
         """Fill `state`, the receiver rows of `out` (and the energy carry
         `en`) from a checkpoint of `save_checkpoint`; returns its step n.
         Refuses (ValueError) a checkpoint of another grid, dtype, route,
-        energy setting or node/source/receiver count, or one past the rows
-        of `out`."""
+        energy setting, fp32_eps (the dtype's default where the file has
+        none) or node/source/receiver count, or one past the rows of
+        `out`."""
+        # a checkpoint written before fp32_eps was part of the key holds
+        # the dtype's default shift, the only one the engines had then
+        default = {"fp32_eps": np.array(float(
+            EngineData.default_fp32_eps(self.data.dtype)))}
         with np.load(path, allow_pickle=False) as z:
             for k, v in self._scene_key().items():
-                if k not in z.files or not np.array_equal(z[k], v):
-                    got = z[k] if k in z.files else "missing"
+                got = z[k] if k in z.files else default.get(k, "missing")
+                if not np.array_equal(got, v):
                     raise ValueError(
                         f"checkpoint {path}: {k} {got}, this engine has "
                         f"{v}: refusing to resume another scene or route")

@@ -1,6 +1,7 @@
-"""Sim-folder data: numpy-only dataclasses (`simdata`) and the HDF5
-readers and writers (`h5`, h5py imported when one is called); the names
-that pffdtd_tpu.io exports, where the port has them."""
+"""Sim-folder data: numpy-only dataclasses (`simdata`), the HDF5 readers
+and writers and the lazy `SimFolder` handle (`h5`, h5py imported when one
+reads or writes); every name that pffdtd_tpu.io exports, and
+`SimData` and `read_sim_folder`."""
 
 from pffdtd_tpu_torch.io.simdata import (  # noqa: F401
     MMb,
@@ -12,6 +13,7 @@ from pffdtd_tpu_torch.io.simdata import (  # noqa: F401
     read_sim_folder,
 )
 from pffdtd_tpu_torch.io.h5 import (  # noqa: F401
+    SimFolder,
     read_cart_grid,
     read_mat_file,
     read_comms,

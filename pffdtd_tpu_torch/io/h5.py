@@ -3,8 +3,9 @@
 Copy of the readers and writers of pffdtd_tpu/io/h5.py (`read_consts`,
 `read_vox`, `read_comms`, `read_mats`, `read_mat_file`, `read_cart_grid`,
 `write_vox`, `write_comms`, `write_mats`, `write_outputs`,
-`read_outputs`): the file contract of the reference, with the same dataset
-names, dtypes and shapes, so the files stay byte-compatible.  They return the port's numpy-only
+`read_outputs`) and of its lazy handle `SimFolder`: the file contract of
+the reference, with the same dataset names, dtypes and shapes, so the
+files stay byte-compatible.  They return the port's numpy-only
 dataclasses.  `h5py` is imported inside each function: the card's machine
 may lack it, and nothing on the engine's path needs it.
 """
@@ -170,3 +171,42 @@ def read_outputs(folder) -> np.ndarray:
 
     with h5py.File(Path(folder) / "sim_outs.h5", "r") as f:
         return f["u_out"][...]
+
+
+class SimFolder:
+    """Lazy handle over a sim folder: each of `consts`, `comms`, `vox` and
+    `mats` reads its own file on first access and keeps it (h5py imported
+    then); `write_outputs` writes sim_outs.h5 in receiver order."""
+
+    def __init__(self, folder):
+        self.folder = Path(folder)
+        self._consts = self._comms = self._vox = self._mats = None
+
+    @property
+    def consts(self) -> SimConstsData:
+        if self._consts is None:
+            self._consts = read_consts(self.folder)
+        return self._consts
+
+    @property
+    def comms(self) -> CommsData:
+        if self._comms is None:
+            self._comms = read_comms(self.folder)
+        return self._comms
+
+    @property
+    def vox(self) -> VoxData:
+        if self._vox is None:
+            self._vox = read_vox(self.folder)
+        return self._vox
+
+    @property
+    def mats(self) -> MatsData:
+        if self._mats is None:
+            self._mats = read_mats(self.folder)
+        return self._mats
+
+    def write_outputs(self, u_out):
+        """sim_outs.h5 from u_out (Nr, Nt), reordered by comms.out_reorder
+        to the receivers' input order."""
+        write_outputs(self.folder, u_out, self.comms.out_reorder)

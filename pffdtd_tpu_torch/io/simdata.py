@@ -98,11 +98,13 @@ class SimData:
 
 
 def read_sim_folder(folder) -> SimData:
-    """Read the four engine inputs of a sim folder (needs h5py)."""
-    from pffdtd_tpu_torch.io import h5
+    """Read the four engine inputs of a sim folder (needs h5py), through
+    `h5.SimFolder`."""
+    from pffdtd_tpu_torch.io.h5 import SimFolder
 
-    return SimData(consts=h5.read_consts(folder), vox=h5.read_vox(folder),
-                   comms=h5.read_comms(folder), mats=h5.read_mats(folder))
+    sf = SimFolder(folder)
+    return SimData(consts=sf.consts, vox=sf.vox, comms=sf.comms,
+                   mats=sf.mats)
 
 
 def write_outputs(folder, u_out, out_reorder=None):

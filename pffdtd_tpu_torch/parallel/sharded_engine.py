@@ -28,6 +28,9 @@ Lossy nodes on an ABC layer (an open room) take K2's and K6's ABC modes on
 every route, their Q from the global grid (a slab without such a node
 launches the kernels without the mode), as on `TorchEngine`.
 
+`fp32_eps` is the stencil's diagonal shift, as on `TorchEngine`
+(`EngineData`; the JAX `ShardedEngine`'s keyword).
+
 Each receiver has one owner, which writes its samples into a per-slab
 (nt, Nr_k) tensor; `run` gathers them into one (nt, Nr) tensor on
 devices[0], the counterpart of the JAX engines' psum of masked taps.  On
@@ -124,7 +127,7 @@ class ShardedTorchEngine:
     def __init__(self, folder=None, *, consts=None, vox=None, comms=None,
                  mats=None, devices=None, dtype=np.float32,
                  backend: str = "auto", tb: int = 3,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, fp32_eps: float | None = None):
         if folder is not None:
             sim = read_sim_folder(folder)
             consts, vox, comms, mats = sim.consts, sim.vox, sim.comms, \
@@ -132,7 +135,8 @@ class ShardedTorchEngine:
         self._folder = folder
         self.devices = _devices(devices)
         self.D = D = len(self.devices)
-        self.data = d = EngineData(consts, vox, comms, mats, dtype=dtype)
+        self.data = d = EngineData(consts, vox, comms, mats, dtype=dtype,
+                                   fp32_eps=fp32_eps)
         self.dtype = _TORCH_DTYPE[d.dtype]
         self.Nt = d.Nt
         self.use_kernels = use_kernels
@@ -336,7 +340,8 @@ class ShardedTorchEngine:
 def make_sharded_engine(folder=None, *, consts=None, vox=None, comms=None,
                         mats=None, devices=None, dtype=np.float32,
                         backend: str = "auto", tb: int = 3,
-                        use_kernels: bool = True) -> ShardedTorchEngine:
+                        use_kernels: bool = True,
+                        fp32_eps: float | None = None) -> ShardedTorchEngine:
     """A `ShardedTorchEngine` over `devices`, the grid first padded with
     exterior air so its interior rows split evenly (`pad_x_interior`); the
     counterpart of sharded_pallas.py:922-959 `make_sharded_engine`.
@@ -355,6 +360,7 @@ def make_sharded_engine(folder=None, *, consts=None, vox=None, comms=None,
     sim = pad_x_interior(sim, len(devs))
     eng = ShardedTorchEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
                              mats=sim.mats, devices=devs, dtype=dtype,
-                             backend=backend, tb=tb, use_kernels=use_kernels)
+                             backend=backend, tb=tb, use_kernels=use_kernels,
+                             fp32_eps=fp32_eps)
     eng._folder = folder
     return eng

@@ -37,7 +37,10 @@ energies within 1e-12 of the plain path's (the balance is the reference's,
 which does not close there).
 Beside the kernels: the energy route (K1 + K2 + K7) against the plain
 path, a resume at a step that is no multiple of TB, and the modal filter
-on the card against its numpy loop, <= 1e-12.
+on the card against its numpy loop, <= 1e-12; the step, tb, pair and
+energy routes with fp32_eps = 1e-3 in fp64 against the plain path with the
+same shift, <= 1e-12; the air / boundary split's probe (K2 timed with CUDA
+events) in a verbose chunked run, its results bitwise a quiet run's.
 """
 
 import dataclasses
@@ -46,7 +49,7 @@ import numpy as np
 import pytest
 import torch
 
-from pffdtd_tpu_torch.engine.torch_engine import TorchEngine
+from pffdtd_tpu_torch.engine.torch_engine import BN_ITERS, TorchEngine
 from pffdtd_tpu_torch.kernels import tb as ktb
 from pffdtd_tpu_torch.io.simdata import MMb
 from pffdtd_tpu_torch.kernels.boundary import (boundary_update,
@@ -752,3 +755,37 @@ def test_voxelized_sloped_room_matches_plain_path(cuda, fcc, backend):
         scale = np.abs(up).max()
         assert scale > 0 and np.isfinite(uk).all()
         assert np.abs(uk - up).max() / scale <= tol, dtype
+
+
+@pytest.mark.parametrize("kw", [{"backend": "step"},
+                                {"backend": "tb", "tb": 3},
+                                {"backend": "pair"}, {"energy_on": True}],
+                         ids=["step", "tb", "pair", "energy"])
+def test_fp32_eps_routes_match_plain(cuda, kw):
+    """fp32_eps set by hand in fp64 on the kernel routes vs the plain path
+    with the same shift, <= 1e-12 (energies too)."""
+    k = _engine("fcc-folded", np.float64, fp32_eps=1e-3, **kw)
+    p = _engine("fcc-folded", np.float64, fp32_eps=1e-3, use_kernels=False,
+                **{"energy_on": kw.get("energy_on", False)})
+    rel = lambda a, b: np.abs(a - b).max() / np.abs(b).max()
+    assert rel(k.run(verbose=False), p.run(verbose=False)) <= 1e-12
+    if k.energy_on:
+        for a in ("H_tot", "E_lost", "E_in"):
+            assert rel(getattr(k, a), getattr(p, a)) <= 1e-12, a
+
+
+def test_split_probe_on_card(cuda, capsys):
+    """bn_ms_per_step times K2 with CUDA events on the step route; a
+    verbose chunked run prints the split and keeps its results bitwise."""
+    quiet = _engine("fcc-folded", np.float32)
+    u_q = quiet.run(chunk=7, verbose=False)
+    loud = _engine("fcc-folded", np.float32)
+    n0 = boundary_update.launches
+    u_v = loud.run(chunk=7)
+    assert boundary_update.launches - n0 == 30 + 1 + BN_ITERS
+    assert " / bn " in capsys.readouterr().out
+    bn = loud.bn_ms_per_step()
+    assert isinstance(bn, float) and 0 < bn < 100
+    assert np.array_equal(u_v, u_q)
+    for k in (0, 1, 3, 4):
+        assert torch.equal(loud.state[k], quiet.state[k])

@@ -197,6 +197,18 @@ for backend in ("step", "tb"):
     assert u.shape == (sim.comms.Nr, 10) and np.isfinite(u).all()
     assert float(eng.state[1].abs().max()) > 0
 assert eng.TB == 3
+# the JAX package's last surface: fp32_eps, the split, SimFolder (h5py is
+# imported only when a property is read)
+import contextlib, io
+from pffdtd_tpu_torch.engine.data import EngineData
+from pffdtd_tpu_torch.io import SimFolder
+assert SimFolder(sys.argv[1]).folder.name and callable(EngineData.from_folder)
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    eng = TorchEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
+                      mats=sim.mats, device="cpu", fp32_eps=1e-3)
+    eng.run(chunk=4)
+assert "/ bn " in buf.getvalue() and eng.bn_ms_per_step() > 0
 from pffdtd_tpu_torch.parallel.sharded_engine import make_sharded_engine
 from pffdtd_tpu_torch.scene import pad_x_interior
 ps = pad_x_interior(sim, 2)          # the grid the two slabs run
