@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (pffdtd_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py            # one card, every phase (1-10)
-    python3 chip_smoke.py --cards    # phase 5 with one slab per card (4)
+    python3 chip_smoke.py --cards    # the x-slab path, one slab per card (4)
 
 Phases, each fatal on failure (no CPU fallback; exit code != 0):
 1. Device and build: the card's name and power limit (nvidia-smi), then the
@@ -228,12 +228,47 @@ carry their ABC modes' times on the open-top headline box, beside the
 kernel without the mode, bound and launches under "abc_mode") and
 {"ok": true, "device": {...}}.  The work sits under `__main__`, so importing
 this file runs nothing.
+
+`--cards` needs four cards and runs the x-slab path with one slab per card,
+`devices=["cuda:0", ..., "cuda:{D-1}"]`, each configuration beside the
+same slabs all on cuda:0 (receivers and final state bitwise equal
+required) and the single-device engine on the padded grid; every check is
+run and printed, and the run fails at its end if any failed:
+- the cards' names and power limits, and peer access between the cards of
+  neighbouring slabs (`torch.cuda.can_device_access_peer`, both ways);
+- the headline box, closed at D = 2 and 4 and open at the top at D = 4,
+  on the step, pair and tb (TB = 3) routes, 128 fp32 steps, best of 3,
+  launches checked: receivers within 1e-5 of the single device's (bitwise
+  equality printed), MVPS and frac (over the single device's on the same
+  padded grid), each card's exchange ms a step (`exchange_ms_by_card`: the
+  copies it sends and receives and its waits for the neighbours' planes),
+  each card's peak memory (the engine's own) and each card's kernel and
+  copy time in one run under torch.profiler; at D = 4, K5 (step) or K6
+  (TB = 2, 3; in its ABC mode on the open box) on every slab's live state
+  after the run, on its card, bitwise equal to its plain version, and on
+  the closed box slab 1 timed on cuda:1 and on cuda:0 (the same slab of
+  the one-card engine, the same live state), in turns;
+- phase 3's fp64 scenes (Cartesian and folded FCC, closed and open at the
+  top) at D = 2 and 4 on every route (padded with exterior air where a
+  slab would hold fewer than 2 TB rows): within 1e-12 of the single
+  device's kernel path, launches checked;
+- `TorchEngine` on cuda:1 (step, tb, pair and energy routes of the
+  open-top Cartesian box, fp64) bitwise equal to its run on cuda:0;
+- `python -m pffdtd_tpu_torch.examples.setup_1e9 --check --routes step,x4
+  --devices cuda:0,cuda:1,cuda:2,cuda:3` in a subprocess: the 1.049 Gvox
+  box's x4 route with one slab per card within 1e-5 of the step route on
+  one card, K5 held to its plain version on shards[1] (cuda:1), setup
+  seconds, each card's peak memory, MVPS.
+Its last lines: a JSON record of every configuration (`{"cards": ...}`),
+the cards' names and power limits, and `{"ok": true, ...}` with the card
+count.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import re
@@ -243,6 +278,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -260,7 +296,8 @@ from pffdtd_tpu_torch.engine.numpy_ref import NumpyEngine
 from pffdtd_tpu_torch.bench import METRIC as BENCH_METRIC, WRAPPERS, rel_err
 from pffdtd_tpu_torch.engine.torch_engine import (BN_ITERS, TorchEngine,
                                                 pick_route)
-from pffdtd_tpu_torch.examples.setup_1e9 import StageTimer, peak_rss_gb
+from pffdtd_tpu_torch.examples.setup_1e9 import (CHECK_TOL, StageTimer,
+                                                 peak_rss_gb)
 from pffdtd_tpu_torch.io.simdata import MMb
 from pffdtd_tpu_torch.kernels import _build
 from pffdtd_tpu_torch.kernels.boundary import boundary_update, \
@@ -409,6 +446,9 @@ BENCH_RUNS = {
     "roof": {"roof": ("stream", None, None, 1)},
 }
 BENCH_OPEN_TOP = ("fp32_spectral", "fp32_drift_lossy")
+# --cards: the cards, one slab each, and the x-slab routes they run
+CARDS = 4
+CARD_ROUTES = (("step", {}), ("pair", {}), ("tb", {"tb": 3}))
 
 
 class SmokeFailure(Exception):
@@ -614,36 +654,54 @@ def randn(gen, dtype, *shape):
     return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
 
 
-def k5_check(eng, gen, k, timing_reps=0):
-    """One K5 call vs stencil_step_shard_plain on slab k from a random
-    state; (max rel err, max abs err, kernel ms, plain ms) on the owned
-    rows."""
+def k5_check(eng, gen, k, timing_reps=0, live=False):
+    """One K5 call vs stencil_step_shard_plain on slab k, on the slab's
+    device, from a random state or (live) from the slab's fields after the
+    engine's last run; (max rel err, max abs err, kernel ms, plain ms) on
+    the owned rows."""
     sh, sc = eng.shards[k], eng.data.sc
-    sl = sh.slab
-    u0, u1 = randn(gen, eng.dtype, *sl.shape), randn(gen, eng.dtype, *sl.shape)
-    outk, outp = torch.zeros_like(u0), torch.zeros_like(u0)
-    stencil_step_shard(u0, u1, sh.adj, outk, sl, sc)
-    stencil_step_shard_plain(u0, u1, sh.adj, outp, sl, sc)
-    torch.cuda.synchronize()
-    own = (slice(*sl.owned), slice(1, -1), slice(1, -1))
-    t = (None, None)
-    if timing_reps:
-        t = (time_ms(lambda: stencil_step_shard(u0, u1, sh.adj, outk, sl, sc),
-                     timing_reps),
-             time_ms(lambda: stencil_step_shard_plain(u0, u1, sh.adj, outp,
-                                                      sl, sc), 3))
-    return rel(outk[own], outp[own]) + t
+    sl, dev = sh.slab, sh.dev
+    if live:
+        u0, u1 = eng.states[k][:2]
+    else:
+        u0 = randn(gen, eng.dtype, *sl.shape).to(dev)
+        u1 = randn(gen, eng.dtype, *sl.shape).to(dev)
+    with torch.cuda.device(dev):     # the events and syncs of this card
+        outk, outp = torch.zeros_like(u0), torch.zeros_like(u0)
+        stencil_step_shard(u0, u1, sh.adj, outk, sl, sc)
+        stencil_step_shard_plain(u0, u1, sh.adj, outp, sl, sc)
+        torch.cuda.synchronize()
+        own = (slice(*sl.owned), slice(1, -1), slice(1, -1))
+        t = (None, None)
+        if timing_reps:
+            t = (time_ms(lambda: stencil_step_shard(u0, u1, sh.adj, outk, sl,
+                                                    sc), timing_reps),
+                 time_ms(lambda: stencil_step_shard_plain(
+                     u0, u1, sh.adj, outp, sl, sc), 3))
+        return rel(outk[own], outp[own]) + t
 
 
-def k6_check(eng, gen, k, timing_reps=0, abc=False):
-    """One K6 sweep vs tb_sweep_shard_plain on slab k from a random state
+def k6_check(eng, gen, k, timing_reps=0, abc=False, live=False):
+    """One K6 sweep vs tb_sweep_shard_plain on slab k, on the slab's
+    device, from a random state or (live) from the slab's fields and
+    branch states after the engine's last run, with random source samples
     (owned rows of both fields, owned nodes' vh/gh, taps); as tb_check."""
     sh = eng.shards[k]
-    st, sl, TB = sh.tb_scene, sh.slab, eng.TB
+    st, sl, TB, dev = sh.tb_scene, sh.slab, eng.TB, sh.dev
     nbl, dt = sh.bnl.numel(), eng.dtype
-    u0, u1 = randn(gen, dt, *sl.shape), randn(gen, dt, *sl.shape)
-    vh, gh = randn(gen, dt, MMb, nbl), randn(gen, dt, MMb, nbl)
-    sig = randn(gen, dt, TB, st.in_ixyz.numel())
+    if live:
+        u0, u1, _, (vh, gh) = eng.states[k]
+    else:
+        u0, u1 = randn(gen, dt, *sl.shape), randn(gen, dt, *sl.shape)
+        vh, gh = randn(gen, dt, MMb, nbl), randn(gen, dt, MMb, nbl)
+        u0, u1, vh, gh = (a.to(dev) for a in (u0, u1, vh, gh))
+    sig = randn(gen, dt, TB, st.in_ixyz.numel()).to(dev)
+    with torch.cuda.device(dev):     # the events and syncs of this card
+        return _k6_compare(sh, u0, u1, vh, gh, sig, timing_reps, abc)
+
+
+def _k6_compare(sh, u0, u1, vh, gh, sig, timing_reps, abc):
+    st, sl, TB = sh.tb_scene, sh.slab, sh.tb_scene.TB
     nr = st.out_ixyz_f.numel()
     (ok_, sk, tk), (op, sp, tp) = (sweep_buffers(u0, vh, TB, nr)
                                    for _ in range(2))
@@ -1100,29 +1158,33 @@ def slab_bytes_ops(eng, k):
     return nbytes, 29.0 * plane * sum(rows) + 80.0 * nodes
 
 
-def phase5(sim, gen, single, roof, configs=SHARDED, cards=False):
+def single_run(sim, backend, kw, single):
+    """The single-device run of `backend` on the grid of `sim` on cuda:0,
+    from `single` ({(route, Nx): (u_out, seconds, grid)}) or run and added
+    there: best of 3, launches checked."""
+    key = (backend, sim.vox.Nx)
+    if key not in single:
+        e1 = engine(sim, np.float32, backend=backend, **kw)
+        u1, t1, _ = run_route(e1, counts_of(e1, 1))
+        single[key] = (u1, t1, e1.data.grid)
+        del e1
+        torch.cuda.empty_cache()
+    return single[key]
+
+
+def phase5(sim, gen, single, roof, configs=SHARDED):
     """The x-slab runs of phase 5 and the shard-mode checks of phase 2.
     single: {(route, Nx): (u_out, seconds, grid)} of the single-device
-    runs so far (phase 4's step route on the unpadded grid).  cards: one
-    slab per card instead of all on cuda:0, and no kernel checks.  Returns
+    runs so far (phase 4's step route on the unpadded grid).  Returns
     the K5 and K6 rows of the kernels' record."""
     npts = lambda gr: gr.Nx * gr.Ny * gr.Nz
     chk, rows = {}, {}
     for D, backend, kw in configs:
-        devs = [f"cuda:{i}" for i in range(D)] if cards else ["cuda:0"] * D
-        ps = pad_x_interior(sim, D)
-        key = (backend, ps.vox.Nx)
-        if key not in single:      # the single-device run on this grid
-            e1 = engine(ps, np.float32, backend=backend, **kw)
-            u1, t1, _ = run_route(e1, counts_of(e1, 1))
-            single[key] = (u1, t1, e1.data.grid)
-            del e1
-            torch.cuda.empty_cache()
-        u_ref, t_ref, g_ref = single[key]
-        used = sorted(set(devs))
-        base = {dv: torch.cuda.memory_allocated(dv) for dv in used}
+        u_ref, t_ref, g_ref = single_run(pad_x_interior(sim, D), backend,
+                                         kw, single)
+        base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        es = sharded(sim, np.float32, D, devices=devs, backend=backend, **kw)
+        es = sharded(sim, np.float32, D, backend=backend, **kw)
         torch.cuda.synchronize()
         t_set = time.perf_counter() - t0
         g = es.data.grid
@@ -1130,8 +1192,8 @@ def phase5(sim, gen, single, roof, configs=SHARDED, cards=False):
                 f"{g_ref.shape}")
         name = f"x{D} {backend}" + (f" TB={es.TB}" if es.TB else "")
         print(f"[5] {name}: {D} slabs of {es.S} rows on {g.shape} on "
-              f"{', '.join(used)}, host setup {t_set:.2f} s", flush=True)
-        if D == 4 and not cards:
+              f"cuda:0, host setup {t_set:.2f} s", flush=True)
+        if D == 4:
             what = "K5" if es.TB is None else f"K6 TB={es.TB}"
             for k in (0, 1, D - 1):
                 fn = k5_check if es.TB is None else k6_check
@@ -1143,31 +1205,31 @@ def phase5(sim, gen, single, roof, configs=SHARDED, cards=False):
                       f"err {r[0]:.3e} (abs {r[1]:.3e}){tms}", flush=True)
                 require(r[0] <= (1e-6 if es.TB is None else 1e-5),
                         f"{what} fp32 slab {k} disagrees: {r[0]}")
-        for dv in used:    # the run's peak, not the checks' temporaries
-            torch.cuda.reset_peak_memory_stats(dv)
+        # the run's peak, not the checks' temporaries
+        torch.cuda.reset_peak_memory_stats()
         u, t, c = run_route(es, counts_of(es, D))
         es.run(nt=NT, verbose=False, time_exchange=True)
         x_ms = es.exchange_ms / NT
-        peak = max(torch.cuda.max_memory_allocated(dv) - base[dv]
-                   for dv in used) / 1e9
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
         scale = np.abs(u_ref).max()
         err = np.abs(u - u_ref).max() / scale
         mv, mv1 = npts(g) * NT / t / 1e6, npts(g) * NT / t_ref / 1e6
         print(f"[5] {name}: {mv:.1f} MVPS (best {t:.4f} s), frac "
               f"{mv / mv1:.4f} of the single device's {mv1:.1f}; exchange "
-              f"{x_ms:.4f} ms/step; peak device memory {peak:.2f} GB "
+              f"{x_ms:.4f} ms/step (the copies, on cuda:0's stream); peak "
+              f"device memory {peak:.2f} GB "
               f"(a card, the engine's own); "
               f"launches {named(c)}; receivers vs single device "
               f"{err:.3e} of max |u_out| {scale:.3e}, bitwise equal "
               f"{np.array_equal(u, u_ref)}", flush=True)
         require(err <= 1e-5, f"{name} receivers disagree: {err}")
-        if D == 4 and backend == "step" and not cards:
+        if D == 4 and backend == "step":
             nb, no = slab_bytes_ops(es, 1)
             r = chk[("K5", 1)]
             rows["K5 stencil_step_shard"] = (
                 c[4], max(chk[("K5", k)][1] for k in (0, 1, 3)), r[2], r[3],
                 nb, no, None)
-        if D == 4 and es.TB == 3 and not cards:
+        if D == 4 and es.TB == 3:
             nb, no = slab_bytes_ops(es, 1)
             r = chk[("K6 TB=3", 1)]
             rows["K6 tb_sweep_shard"] = (
@@ -1176,13 +1238,13 @@ def phase5(sim, gen, single, roof, configs=SHARDED, cards=False):
             print(f"[5] K6 TB=3 {r[2]:.4f} ms/sweep on slab 1 = "
                   f"{r[2] / 3:.4f} ms/step; bound {nb / roof / 1e6:.4f} ms "
                   f"at the roof", flush=True)
-        if D == 4 and es.TB == 2 and not cards:
+        if D == 4 and es.TB == 2:
             nb, _ = slab_bytes_ops(es, 1)
             print(f"[5] K6 TB=2 {chk[('K6 TB=2', 1)][2]:.4f} ms/sweep on "
                   f"slab 1; bound {nb / roof / 1e6:.4f} ms at the roof "
                   f"({nb / HBM_BPS * 1e3:.4f} at the published rate), "
                   f"{nb / 1e9:.4f} GB", flush=True)
-        if D == 4 and backend == "step" and not cards:
+        if D == 4 and backend == "step":
             print(f"[5] K5 {chk[('K5', 1)][2]:.4f} ms on slab 1 = "
                   f"{nb / chk[('K5', 1)][2] / 1e6:.1f} GB/s", flush=True)
         del es
@@ -1192,15 +1254,17 @@ def phase5(sim, gen, single, roof, configs=SHARDED, cards=False):
 
 def counts_of(eng, D, nt=NT):
     """The launches (a counts() tuple) one nt-step run of `eng` must
-    make."""
+    make: on x-slabs K2 only on the slabs that hold lossy nodes (a slab of
+    padding air holds none)."""
     TB = eng.TB
     if D == 1 and TB is None:
         return launches(K1=nt, K2=nt)
     if D == 1:
         return launches(K1=nt % TB, K2=nt % TB, K3=nt // TB)
+    k2 = sum(sh.bnl.numel() > 0 for sh in eng.shards)
     if TB is None:
-        return launches(K2=D * nt, K5=D * nt)
-    return launches(K2=D * (nt % TB), K5=D * (nt % TB),
+        return launches(K2=k2 * nt, K5=D * nt)
+    return launches(K2=k2 * (nt % TB), K5=D * (nt % TB),
                     K6=D * (nt // TB))
 
 
@@ -2441,26 +2505,334 @@ def main():
         "count": 1}}))
 
 
-def main_cards():
-    """Phase 5 with one slab per card: D = 2 and 4 on the step, pair and tb
-    routes, each against the single-device engine on cuda:0 (no kernel
-    checks: the default run makes them).  Needs four cards."""
+class Verdicts:
+    """The checks of `--cards`, each printed and kept; a section that
+    raises is printed and kept as a failure, and the run goes on, so one
+    call on four cards reports every fault at once.  `close` fails the
+    run if any check failed."""
+
+    def __init__(self):
+        self.failed = []
+
+    def __call__(self, cond, msg):
+        if not cond:
+            self.failed.append(msg)
+            print(f"[cards] FAIL: {msg}", flush=True)
+
+    @contextlib.contextmanager
+    def section(self, name):
+        try:
+            yield
+        except Exception as e:        # reported here, fatal at `close`
+            traceback.print_exc(file=sys.stdout)
+            self(False, f"{name}: {type(e).__name__}: {e}")
+        finally:
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    def close(self):
+        require(not self.failed, f"{len(self.failed)} checks failed: "
+                f"{self.failed}")
+
+
+def fit_slabs(sim, D, G):
+    """`sim` padded with exterior air so its interior rows split into D
+    slabs of at least 2G rows (K6's least, `TBScene.make_slab`)."""
+    sim = pad_x_interior(sim, D)
+    if (sim.vox.Nx - 2) // D < 2 * G:
+        sim = pad_x_interior(sim, 2 * G * D)
+    return sim
+
+
+def busy_by_card(eng, top=6):
+    """One NT-step run of `eng` under torch.profiler (host and device):
+    {card index: ms of its kernels and copies}, the traced run's seconds,
+    and the `top` host operations by their own host time, {name: (calls,
+    us of own host time)} a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.run(nt=NT, verbose=False)
+    busy = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            busy[ev.device_index] = (busy.get(ev.device_index, 0.0)
+                                     + ev.time_range.elapsed_us() / 1e3)
+    host = sorted((a for a in prof.key_averages()
+                   if a.device_type == DeviceType.CPU),
+                  key=lambda a: -a.self_cpu_time_total)[:top]
+    return busy, eng.elapsed, {a.key: (a.count / NT,
+                                       a.self_cpu_time_total / NT)
+                               for a in host}
+
+
+def states_equal(a, b):
+    """Two x-slab engines' final states (`global_state`) bitwise equal."""
+    return all(np.array_equal(x, y)
+               for x, y in zip(a.global_state(), b.global_state()))
+
+
+def cards_headline(sim, scene, D, backend, kw, cards, single, gen, v, recs):
+    """One x-slab configuration of the headline box with one slab per card
+    (cards[:D]), beside the same slabs on cuda:0 and the single-device
+    engine on the padded grid (every run best of 3, launches checked):
+    receivers within 1e-5 of the single device's (bitwise printed),
+    receivers and final state bitwise the one-card slabs'; MVPS, frac,
+    each card's exchange ms a step and peak memory, and each card's
+    device time in a traced run.  At D = 4, K5 or K6 on every slab's
+    live state on its card, bitwise its plain version, and slab 1 timed
+    on its card beside the same slab on cuda:0, in turns."""
+    devs = cards[:D]
+    used = list(dict.fromkeys(devs))
+    u_ref, t_ref, g_ref = single_run(pad_x_interior(sim, D), backend, kw,
+                                     single)
+    e0 = sharded(sim, np.float32, D, backend=backend, **kw)
+    u_one, t_one, _ = run_route(e0, counts_of(e0, D))
+    base = {d: torch.cuda.memory_allocated(d) for d in used}
+    t0 = time.perf_counter()
+    es = sharded(sim, np.float32, D, devices=devs, backend=backend, **kw)
+    for d in used:
+        torch.cuda.synchronize(d)
+    t_set = time.perf_counter() - t0
+    name = f"{scene} x{D} {backend}" + (f" TB={es.TB}" if es.TB else "")
+    for d in used:
+        torch.cuda.reset_peak_memory_stats(d)
+    u, t, c = run_route(es, counts_of(es, D))
+    peak = {d: (torch.cuda.max_memory_allocated(d) - base[d]) / 1e9
+            for d in used}
+    same_state = states_equal(es, e0)
+    es.run(nt=NT, verbose=False, time_exchange=True)
+    xch = {k: ms / NT for k, ms in es.exchange_ms_by_card.items()}
+    busy, t_traced, host = busy_by_card(es)
+    g = es.data.grid
+    npts = g.Nx * g.Ny * g.Nz
+    mv, mv1 = npts * NT / t / 1e6, npts * NT / t_ref / 1e6
+    err = rel_err(u, u_ref)
+    row = dict(scene=scene, D=D, route=backend, TB=es.TB, grid=list(g.shape),
+               rows=es.S, mvps=mv, single_mvps=mv1, frac=mv / mv1,
+               one_card_mvps=npts * NT / t_one / 1e6, seconds=t,
+               setup_s=t_set, exchange_ms_step=xch,
+               peak_gb={str(d): x for d, x in peak.items()},
+               busy_ms_step={k: x / NT for k, x in busy.items()},
+               traced_s=t_traced, host_us_step=host, err=err,
+               bitwise_single=bool(np.array_equal(u, u_ref)),
+               bitwise_one_card=bool(np.array_equal(u, u_one)),
+               state_bitwise_one_card=same_state, launches=named(c))
+    print(f"[cards] {name}: {D} slabs of {es.S} rows on {g.shape} on "
+          f"{', '.join(map(str, used))}, host setup {t_set:.2f} s; "
+          f"{mv:.1f} MVPS (best {t:.4f} s), frac {mv / mv1:.4f} of one "
+          f"card's {mv1:.1f} (the same slabs on cuda:0 "
+          f"{row['one_card_mvps']:.1f}); exchange ms a step by card "
+          f"{ {k: round(x, 4) for k, x in xch.items()} }; peak GB by card "
+          f"{ {str(d): round(x, 2) for d, x in peak.items()} }; device ms "
+          f"a step by card (traced run, {t_traced:.4f} s) "
+          f"{ {k: round(x, 4) for k, x in row['busy_ms_step'].items()} }, "
+          f"its top host operations (calls, own us) a step "
+          f"{ {k: (round(n, 2), round(x, 1)) for k, (n, x) in host.items()} }"
+          f"; launches {named(c)}; receivers vs one card {err:.3e} of max "
+          f"|u_out| {np.abs(u_ref).max():.3e}, bitwise equal "
+          f"{row['bitwise_single']}; receivers and final state bitwise the "
+          f"same slabs on cuda:0's {row['bitwise_one_card']} "
+          f"{same_state}", flush=True)
+    v(err <= 1e-5, f"{name}: receivers {err} from the single device's")
+    v(row["bitwise_one_card"] and same_state, f"{name}: differs from the "
+      "same slabs on cuda:0")
+    v(c == counts_of(es, D), f"{name}: launches {named(c)}")
+    if D == 4:
+        fn = k5_check if es.TB is None else k6_check
+        what = "K5" if es.TB is None else f"K6 TB={es.TB}"
+        abc = [sh.abcq is not None for sh in es.shards]
+        errs = [fn(es, gen, k, live=True)[1] for k in range(D)]
+        print(f"[cards] {name}: {what} on each slab's live state on its "
+              f"card {', '.join(str(sh.dev) for sh in es.shards)}, ABC mode "
+              f"{abc}: max abs err vs its plain version {errs}", flush=True)
+        v(max(errs) == 0.0, f"{name}: {what} differs from its plain version "
+          f"on a card: {errs}")
+        v(any(abc) == (scene == "open"), f"{name}: ABC modes {abc}")
+        row.update(kernel=what, kernel_abs_err=errs, abc_mode=abc)
+        if scene == "closed":          # slab 1 on its card beside cuda:0
+            ms = {}
+            for e in (e0, es, es, e0):
+                r = fn(e, gen, 1, timing_reps=20, live=True)
+                ms.setdefault(str(e.shards[1].dev), []).append(r[2:4])
+            row["slab1_ms"] = {d: min(m for m, _ in x) for d, x in ms.items()}
+            row["slab1_plain_ms"] = {d: min(p for _, p in x)
+                                     for d, x in ms.items()}
+            print(f"[cards] {what} slab 1 of 4 (live state), ms a call by "
+                  f"card, in turns: {ms}", flush=True)
+    recs.append(row)
+    del e0, es
+
+
+def cards_small(name, D, backend, kw, cards, v):
+    """Phase 3's small fp64 scene `name` in D slabs, one per card, against
+    the single device's kernel path on the padded grid (<= 1e-12) and the
+    same slabs on cuda:0 (receivers and final state bitwise), launches
+    checked; Nt steps on the open-top boxes, NT_SMALL on the others."""
+    G = 1 if backend == "step" else kw.get("tb", 2)
+    s = fit_slabs(small_scene(name), D, G)
+    e0 = sharded(s, np.float64, D, backend=backend, **kw)
+    nt = e0.Nt if name in OPEN_SMALL else NT_SMALL
+    uk = engine(s, np.float64, backend=backend, **kw).run(nt=nt,
+                                                         verbose=False)
+    u0 = e0.run(nt=nt, verbose=False)
+    es = sharded(s, np.float64, D, devices=cards[:D], backend=backend, **kw)
+    reset_counts()
+    u = es.run(nt=nt, verbose=False)
+    c = counts()
+    err = rel_err(u, uk)
+    same = bool(np.array_equal(u, u0)) and states_equal(es, e0)
+    tag = f"{name} x{D} {backend}" + (f" TB={es.TB}" if es.TB else "")
+    print(f"[cards] {tag} fp64 ({es.S} rows a slab, {nt} steps): vs the "
+          f"single device {err:.3e} (bitwise {np.array_equal(u, uk)}), "
+          f"receivers and final state bitwise the same slabs on cuda:0's "
+          f"{same}; launches {named(c)}", flush=True)
+    v(np.abs(uk).max() > 0 and err <= 1e-12, f"{tag} fp64: {err}")
+    v(same, f"{tag} fp64: differs from the same slabs on cuda:0")
+    v(c == counts_of(es, D, nt), f"{tag}: launches {named(c)}")
+    return err
+
+
+def cards_engine(card, v):
+    """The single-device engine on `card` (not cuda:0): the step, tb, pair
+    and energy routes of the open-top Cartesian box in fp64 (K1, K2, K3 in
+    their ABC modes, K1e, K7) bitwise the same engine's on cuda:0."""
+    s = small_scene("cart_open")
+    for kw in ({"backend": "step"}, {"backend": "tb", "tb": 3},
+               {"backend": "pair"}, {"energy_on": True}):
+        ek = [TorchEngine(consts=s.consts, vox=s.vox, comms=s.comms,
+                          mats=s.mats, dtype=np.float64, device=d, **kw)
+              for d in ("cuda:0", card)]
+        u = [e.run(verbose=False) for e in ek]
+        same = np.array_equal(*u) and all(
+            torch.equal(a.cpu(), b.cpu())
+            for a, b in zip(ek[0].state, ek[1].state) if torch.is_tensor(a))
+        if kw.get("energy_on"):
+            same = same and all(np.array_equal(getattr(ek[0], a),
+                                               getattr(ek[1], a))
+                                for a in ("H_tot", "E_lost", "E_in"))
+        print(f"[cards] TorchEngine {kw} cart_open fp64 on {card}: "
+              f"receivers and final state (energies) bitwise its run on "
+              f"cuda:0: {same}", flush=True)
+        v(same, f"TorchEngine {kw} on {card} differs from cuda:0")
+
+
+def cards_1e9(cards, v):
+    """setup_1e9 --check on its step route (one card) and its x4 route
+    with one slab per card (`--devices`), in a subprocess: receivers
+    within 1e-5, launches checked, K5 held to its plain version on
+    shards[1]'s card; returns its record."""
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "pffdtd_tpu_torch.examples.setup_1e9",
+         "--check", "--routes", "step,x4", "--devices", ",".join(cards)],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=TIMEOUT_1E9)
+    secs = time.perf_counter() - t0
+    for line in p.stdout.splitlines():
+        if line.startswith("[setup_1e9]"):
+            print("[cards 1e9]" + line[len("[setup_1e9]"):], flush=True)
+    require(p.returncode == 0, f"setup_1e9 exited with {p.returncode}:\n"
+            f"{p.stdout[-2000:]}\n{p.stderr[-4000:]}")
+    rec = json.loads(p.stdout.strip().splitlines()[-1])["setup_1e9"]
+    nt = rec["nt"]
+    st, x4 = rec["routes"]["step"], rec["routes"]["x4"]
+    v(rec["grid"] == GRID_1E9, f"setup_1e9 grid {rec['grid']}")
+    v(st["launches"]["K1"] == nt and x4["launches"]["K5"] == 4 * nt
+      and x4["launches"]["K2"] == 4 * nt, f"setup_1e9 launches "
+      f"{st['launches']}, {x4['launches']}")
+    v(rec["receivers_vs_first"]["x4"] <= 1e-5 and x4["max_abs_u"] > 0,
+      f"setup_1e9 x4 across cards: {rec['receivers_vs_first']}")
+    k5 = x4["checks"].get("K5", {})
+    v(k5.get("max_rel_err", 1.0) <= CHECK_TOL["K5"], f"setup_1e9 K5 on "
+      f"shards[1]: {k5}")
+    print(f"[cards 1e9] {secs:.1f} s in all; setup {rec['setup_s']['total']:.2f}"
+          f" s, peak RSS {rec['rss_gb']:.2f} GB; step {st['mvps']:.1f} MVPS "
+          f"on one card, x4 {x4['mvps']:.1f} on {', '.join(cards)} (frac "
+          f"{x4['mvps'] / st['mvps']:.4f}), peak GB by card "
+          f"{x4['peak_gb_by_device']}; receivers x4 vs step "
+          f"{rec['receivers_vs_first']['x4']:.3e}, bitwise "
+          f"{rec['bitwise_equal']['x4']}", flush=True)
+    return rec
+
+
+def main_cards(cards=None):
+    """The x-slab path with one slab per card (see the module docstring:
+    `--cards`).  cards: the four devices of the slabs, default cuda:0 ..
+    cuda:3 (a rehearsal may pass one card four times)."""
+    t_start = time.perf_counter()
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if n < 4:
-        raise SmokeFailure(f"--cards needs 4 cards, this machine has {n}")
+    if cards is None:
+        if n < CARDS:
+            raise SmokeFailure(f"--cards needs {CARDS} cards, this machine "
+                               f"has {n}")
+        cards = [f"cuda:{i}" for i in range(CARDS)]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    v = Verdicts()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout
-    print(smi.strip())
-    lib = _build.library()
-    print(f"[1] built {lib.path.name} in {lib.build_seconds:.2f} s",
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}, {n} cards: "
+          + ", ".join(torch.cuda.get_device_name(i) for i in range(n)),
           flush=True)
-    configs = tuple((D, b, kw) for D in (2, 4) for b, kw in
-                    (("step", {}), ("pair", {}), ("tb", {"tb": 3})))
-    phase5(headline_scene(NT), None, {}, None, configs, cards=True)
+    idx = [torch.device(c).index for c in cards]
+    peer = {f"{a}->{b}": torch.cuda.can_device_access_peer(a, b)
+            for i, j in zip(idx, idx[1:]) if i != j
+            for a, b in ((i, j), (j, i))}
+    print(f"[cards] peer access between neighbouring slabs' cards: {peer}",
+          flush=True)
+    lib = _build.library()
+    print(f"[cards] built {lib.path.name} in {lib.build_seconds:.2f} s",
+          flush=True)
+    recs, single = [], {}
+    for scene, open_top, Ds in (("closed", False, (2, 4)),
+                                ("open", True, (4,))):
+        sim = headline_scene(NT, open_top=open_top)
+        for D in Ds:
+            for backend, kw in CARD_ROUTES:
+                with v.section(f"{scene} x{D} {backend}"):
+                    cards_headline(sim, scene, D, backend, kw, cards,
+                                   single, gen, v, recs)
+        single.clear()
+    t_head = time.perf_counter() - t_start
+    small = {}
+    for name in (*SMALL, *OPEN_SMALL):
+        if name == "fcc":          # unfolded FCC: phase 3 has it, as here
+            continue
+        for D in (2, 4):
+            for backend, kw in CARD_ROUTES:
+                with v.section(f"{name} x{D} {backend} fp64"):
+                    small[f"{name} x{D} {backend}"] = cards_small(
+                        name, D, backend, kw, cards, v)
+    with v.section("TorchEngine on another card"):
+        cards_engine(cards[1], v)
+    t_small = time.perf_counter() - t_start - t_head
+    rec_1e9 = None
+    with v.section("setup_1e9 across cards"):
+        rec_1e9 = cards_1e9(cards, v)
+    t_all = time.perf_counter() - t_start
+    print(f"[cards] {t_all:.1f} s in all: headline {t_head:.1f}, fp64 small "
+          f"scenes {t_small:.1f}, setup_1e9 {t_all - t_head - t_small:.1f}",
+          flush=True)
+    print(json.dumps({"cards": {
+        "devices": cards, "peer": peer, "headline": recs,
+        "small_fp64_err": small, "seconds": t_all,
+        "setup_1e9": None if rec_1e9 is None else {
+            k: rec_1e9[k] for k in ("grid", "setup_s", "rss_gb",
+                                    "receivers_vs_first", "bitwise_equal")}
+        | {"routes": {r: {k: x[k] for k in ("mvps", "ms_step", "peak_gb",
+                                             "peak_gb_by_device", "build_s",
+                                             "runs_s", "launches", "checks")}
+                      for r, x in rec_1e9["routes"].items()}}}}))
+    v.close()
+    print(smi)   # again, where the end of a long output keeps it
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 4}}))
+        "count": n}}))
 
 
 if __name__ == "__main__":

@@ -249,7 +249,8 @@ def run_route(sim, route, nt, dtype=np.float32, device="cuda", devices=None,
 
     Returns (u_out, record): the grid, Nbl, the build's seconds, the best
     and every run's loop seconds, MVPS and ms a step of the best, the
-    peak device memory in GB (None on the CPU), the launches, max |u_out|,
+    peak device memory in GB, the largest of the cards' (None on the CPU)
+    and each card's, the launches, max |u_out|,
     the checks, the seconds of it all (host clock) and, on the energy
     route, the balance, E_lost[-1] and the reckoned memory (`energy_gb`);
     raises where the balance is not below BALANCE."""
@@ -271,15 +272,17 @@ def run_route(sim, route, nt, dtype=np.float32, device="cuda", devices=None,
         u = eng.run(nt=nt, verbose=False)
         runs.append(eng.elapsed)
     count = launches()
-    peak = (max(torch.cuda.max_memory_allocated(d) for d in cards) / 1e9
-            if cards else None)
+    by_card = {str(d): torch.cuda.max_memory_allocated(d) / 1e9
+               for d in cards}
+    peak = max(by_card.values()) if cards else None
     g = eng.data.grid
     best = min(runs)
     rec = {"grid": list(g.shape), "Nbl": eng.data.Nbl, "build_s": t_build,
            "seconds": best, "runs_s": runs,
            "mvps": g.Nx * g.Ny * g.Nz * nt / best / 1e6,
            "ms_step": 1e3 * best / nt, "peak_gb": peak,
-           "launches": count, "max_abs_u": float(np.abs(u).max())}
+           "peak_gb_by_device": by_card, "launches": count,
+           "max_abs_u": float(np.abs(u).max())}
     if route == "energy":
         rec.update(balance=float(np.abs(eng.energy_balance()).max()),
                    E_lost=float(eng.E_lost[-1]), reckoned_gb=energy_gb(eng))
@@ -546,9 +549,13 @@ def main(argv=None):
         outs[route], r = run_route(sim, route, nt, dtype, args.device,
                                    devices, check=args.check)
         rec["routes"][route] = r
+        by_card = r["peak_gb_by_device"]
         peak = ("not measured" if r["peak_gb"] is None
-                else f"{r['peak_gb']:.2f} GB")
-        print(f"[setup_1e9] {route} on {rec['device']}, grid {r['grid']}: "
+                else f"{r['peak_gb']:.2f} GB" if len(by_card) < 2
+                else ", ".join(f"{d} {x:.2f} GB" for d, x in by_card.items()))
+        where = rec["device"] + (f" ({', '.join(devices)})"
+                                 if route == "x4" and devices else "")
+        print(f"[setup_1e9] {route} on {where}, grid {r['grid']}: "
               f"{r['mvps']:.1f} MVPS, "
               f"{r['ms_step']:.4f} ms a step ({nt} steps in "
               f"{r['seconds']:.4f} s, the best of "

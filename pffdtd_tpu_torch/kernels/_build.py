@@ -18,6 +18,7 @@ mode's), which one thread compiles in minutes.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,6 +26,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -151,6 +154,26 @@ def library() -> KernelLibrary:
         os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
     _LIB = KernelLibrary(so, time.perf_counter() - t0, log)
     return _LIB
+
+
+_CURRENT = contextlib.nullcontext()
+
+
+def on_device(dev: torch.device):
+    """The context a launch through ctypes on `dev`'s tensors runs in.
+
+    The C entry points launch on the calling thread's current device, as
+    any CUDA runtime call does, whatever card their pointers and stream
+    belong to, and `cudaFuncSetAttribute` (K3/K6's shared memory above 48
+    KB) sets the current card only.  On four H100s, K4 called with cuda:1's
+    tensors from a thread on cuda:0 returned no error and left its output
+    unwritten, and the next launch met an illegal address.  So on a card
+    that is not the current one this makes `dev` current for the launch
+    (`torch.cuda.device`), as PyTorch's own operators do for their
+    tensors; on the current card it does nothing."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return _CURRENT
+    return torch.cuda.device(dev)
 
 
 def check(rc: int, name: str):

@@ -87,13 +87,15 @@ def boundary_update(unew, u0, bnl, ssaf, mat, coef_table, beta, vh, gh, sc,
     if nbl == 0:
         return unew
     lib = _build.library()
-    rc = lib.pf_boundary_update(
-        0 if unew.dtype == torch.float32 else 1, unew.data_ptr(),
-        u0.data_ptr(), bnl.data_ptr(), ssaf.data_ptr(), mat.data_ptr(),
-        coef_table.data_ptr(), beta.data_ptr(), vh.data_ptr(), gh.data_ptr(),
-        nbl, sc.l, sc.lo2, None if abcq is None else abcq.data_ptr(),
-        *abc_lq(sc, unew.dtype),
-        torch.cuda.current_stream(unew.device).cuda_stream)
+    with _build.on_device(unew.device):
+        rc = lib.pf_boundary_update(
+            0 if unew.dtype == torch.float32 else 1, unew.data_ptr(),
+            u0.data_ptr(), bnl.data_ptr(), ssaf.data_ptr(), mat.data_ptr(),
+            coef_table.data_ptr(), beta.data_ptr(), vh.data_ptr(),
+            gh.data_ptr(), nbl, sc.l, sc.lo2,
+            None if abcq is None else abcq.data_ptr(),
+            *abc_lq(sc, unew.dtype),
+            torch.cuda.current_stream(unew.device).cuda_stream)
     _build.check(rc, "boundary_update")
     boundary_update.launches += 1
     return unew

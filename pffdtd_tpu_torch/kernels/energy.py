@@ -140,11 +140,12 @@ def energy_grid_pass(es, u0, u1, Lu, part):
         return energy_grid_pass_plain(es, u0, u1, Lu, part)
     lib = _build.library()
     g = es.grid
-    rc = lib.pf_energy_grid(
-        0 if u1.dtype == torch.float32 else 1, nn, u0.data_ptr(),
-        u1.data_ptr(), es.adj.data_ptr(), Lu.data_ptr(), part.data_ptr(),
-        part.numel(), g.Nx, g.Ny, g.Nz, int(g.folded), es.lfac, es.inv_l2,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with _build.on_device(dev):
+        rc = lib.pf_energy_grid(
+            0 if u1.dtype == torch.float32 else 1, nn, u0.data_ptr(),
+            u1.data_ptr(), es.adj.data_ptr(), Lu.data_ptr(),
+            part.data_ptr(), part.numel(), g.Nx, g.Ny, g.Nz, int(g.folded),
+            es.lfac, es.inv_l2, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "energy_grid_pass")
     energy_grid_pass.launches += 1
     return Lu
@@ -199,18 +200,19 @@ def energy_boundary_pass(es, unew, u0, vh, vh_prev, gh_prev, sig, part, H,
                                           sig, part, H, E_lost, E_in)
     lib = _build.library()
     g = es.grid
-    rc = lib.pf_energy_boundary(
-        0 if unew.dtype == torch.float32 else 1, unew.data_ptr(),
-        u0.data_ptr(), vh.data_ptr(), vh_prev.data_ptr(),
-        gh_prev.data_ptr(), es.ssaf.data_ptr(), es.mat.data_ptr(),
-        es.def_table.data_ptr(), es.in_ixyz.data_ptr(), sig.data_ptr(), nbl,
-        es.in_ixyz.numel(), part.data_ptr(), part.numel(), g.Nx, g.Ny, g.Nz,
-        int(g.folded), es.Ts,
-        # the constants as the plain building blocks write them
-        es.V_fac * 0.5 * es.h, es.V_fac * 0.5 * es.c / es.l2,
-        0.5 * es.V_fac * es.h / es.l, es.V_fac * 0.25 * es.h / es.l,
-        (es.V_fac * es.h / es.l2) * 0.5, H.data_ptr(), E_lost.data_ptr(),
-        E_in.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    with _build.on_device(dev):
+        rc = lib.pf_energy_boundary(
+            0 if unew.dtype == torch.float32 else 1, unew.data_ptr(),
+            u0.data_ptr(), vh.data_ptr(), vh_prev.data_ptr(),
+            gh_prev.data_ptr(), es.ssaf.data_ptr(), es.mat.data_ptr(),
+            es.def_table.data_ptr(), es.in_ixyz.data_ptr(), sig.data_ptr(),
+            nbl, es.in_ixyz.numel(), part.data_ptr(), part.numel(), g.Nx,
+            g.Ny, g.Nz, int(g.folded), es.Ts,
+            # the constants as the plain building blocks write them
+            es.V_fac * 0.5 * es.h, es.V_fac * 0.5 * es.c / es.l2,
+            0.5 * es.V_fac * es.h / es.l, es.V_fac * 0.25 * es.h / es.l,
+            (es.V_fac * es.h / es.l2) * 0.5, H.data_ptr(), E_lost.data_ptr(),
+            E_in.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "energy_boundary_pass")
     energy_boundary_pass.launches += 1
     return H

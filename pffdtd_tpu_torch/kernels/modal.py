@@ -82,10 +82,11 @@ def modal_scan(a1, a2, F1, F2, u, out):
     if dev.type == "cpu":
         return modal_scan_plain(a1, a2, F1, F2, u, out)
     lib = _build.library()
-    rc = lib.pf_modal_recurrence(
-        a1.data_ptr(), a2.data_ptr(), F1.data_ptr(), F2.data_ptr(),
-        u.data_ptr(), out.data_ptr(), nch, nt, serial_modes(nt),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with _build.on_device(dev):
+        rc = lib.pf_modal_recurrence(
+            a1.data_ptr(), a2.data_ptr(), F1.data_ptr(), F2.data_ptr(),
+            u.data_ptr(), out.data_ptr(), nch, nt, serial_modes(nt),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "modal_scan")
     modal_scan.launches += 1
     return out

@@ -101,10 +101,11 @@ def stencil_step(u0, u1, adj, out, grid, sc):
         raise ValueError(f"device {u1.device}: cpu or cuda only")
     lib = _build.library()
     Nx, Ny, Nz = grid.shape
-    rc = lib.pf_stencil_step(
-        *_launch_args(u0, u1, adj, out, nn), Nx, Ny, Nz,
-        int(grid.folded), sc.a2, sc.sl2, sc.l * 1, sc.l * 2, sc.l * 3,
-        torch.cuda.current_stream(u1.device).cuda_stream)
+    with _build.on_device(u1.device):
+        rc = lib.pf_stencil_step(
+            *_launch_args(u0, u1, adj, out, nn), Nx, Ny, Nz,
+            int(grid.folded), sc.a2, sc.sl2, sc.l * 1, sc.l * 2, sc.l * 3,
+            torch.cuda.current_stream(u1.device).cuda_stream)
     _build.check(rc, "stencil_step")
     stencil_step.launches += 1
     return out
@@ -134,11 +135,12 @@ def stencil_energy_step(u0, u1, adj, out, Lu, part, grid, sc, es):
                                          sc, es)
     lib = _build.library()
     Nx, Ny, Nz = grid.shape
-    rc = lib.pf_stencil_energy_step(
-        *_launch_args(u0, u1, adj, out, nn), Lu.data_ptr(), part.data_ptr(),
-        part.numel(), Nx, Ny, Nz, int(grid.folded), sc.a2, sc.sl2, sc.l * 1,
-        sc.l * 2, sc.l * 3, es.lfac, es.inv_l2,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with _build.on_device(dev):
+        rc = lib.pf_stencil_energy_step(
+            *_launch_args(u0, u1, adj, out, nn), Lu.data_ptr(),
+            part.data_ptr(), part.numel(), Nx, Ny, Nz, int(grid.folded),
+            sc.a2, sc.sl2, sc.l * 1, sc.l * 2, sc.l * 3, es.lfac, es.inv_l2,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "stencil_energy_step")
     stencil_energy_step.launches += 1
     return out
@@ -186,10 +188,12 @@ def stencil_step_shard(u0, u1, adj, out, slab, sc):
         raise ValueError(f"device {u1.device}: cpu or cuda only")
     lib = _build.library()
     g = slab.grid
-    rc = lib.pf_stencil_step_shard(
-        *_launch_args(u0, u1, adj, out, nn), g.Nx, g.Ny, g.Nz,
-        int(g.folded), slab.G, slab.S, slab.xo, sc.a2, sc.sl2, sc.l * 1,
-        sc.l * 2, sc.l * 3, torch.cuda.current_stream(u1.device).cuda_stream)
+    with _build.on_device(u1.device):
+        rc = lib.pf_stencil_step_shard(
+            *_launch_args(u0, u1, adj, out, nn), g.Nx, g.Ny, g.Nz,
+            int(g.folded), slab.G, slab.S, slab.xo, sc.a2, sc.sl2, sc.l * 1,
+            sc.l * 2, sc.l * 3,
+            torch.cuda.current_stream(u1.device).cuda_stream)
     _build.check(rc, "stencil_step_shard")
     stencil_step_shard.launches += 1
     return out

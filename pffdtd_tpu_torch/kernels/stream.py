@@ -60,18 +60,20 @@ def stream(mode: str, x=None, y=None, value: float = 0.0):
         raise ValueError(f"device {t.device}: cpu or cuda only")
     lib = _build.library()
     partial = out = None
-    if mode == "read":
-        blocks = lib.pf_stream_blocks(t.numel())
-        if blocks <= 0:
-            raise RuntimeError("stream: no CUDA device to size the grid")
-        partial = torch.empty(blocks, dtype=torch.float64, device=t.device)
-        out = torch.empty((), dtype=torch.float64, device=t.device)
-    rc = lib.pf_stream(
-        _MODE_ID[mode], x.data_ptr() if x is not None else None,
-        y.data_ptr() if y is not None else None, t.numel(), float(value),
-        partial.data_ptr() if partial is not None else None,
-        out.data_ptr() if out is not None else None,
-        torch.cuda.current_stream(t.device).cuda_stream)
+    with _build.on_device(t.device):
+        if mode == "read":
+            blocks = lib.pf_stream_blocks(t.numel())
+            if blocks <= 0:
+                raise RuntimeError("stream: no CUDA device to size the grid")
+            partial = torch.empty(blocks, dtype=torch.float64,
+                                  device=t.device)
+            out = torch.empty((), dtype=torch.float64, device=t.device)
+        rc = lib.pf_stream(
+            _MODE_ID[mode], x.data_ptr() if x is not None else None,
+            y.data_ptr() if y is not None else None, t.numel(), float(value),
+            partial.data_ptr() if partial is not None else None,
+            out.data_ptr() if out is not None else None,
+            torch.cuda.current_stream(t.device).cuda_stream)
     _build.check(rc, "stream")
     stream.launches += 1
     return out if mode == "read" else y

@@ -340,10 +340,12 @@ def tb_sweep(st: TBScene, u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out,
                               gh_out, sig, taps)
     if u1.device.type != "cuda":
         raise ValueError(f"device {u1.device}: cpu or cuda only")
-    rc = _build.library().pf_tb_sweep(
-        *_launch_args(st, u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out,
-                      sig, taps),
-        torch.cuda.current_stream(u1.device).cuda_stream)
+    lib = _build.library()
+    with _build.on_device(u1.device):
+        rc = lib.pf_tb_sweep(
+            *_launch_args(st, u0, u1, out0, out1, vh_in, gh_in, vh_out,
+                          gh_out, sig, taps),
+            torch.cuda.current_stream(u1.device).cuda_stream)
     _build.check(rc, "tb_sweep")
     tb_sweep.launches += 1
     return out0, out1
@@ -391,11 +393,13 @@ def tb_sweep_shard(st: TBScene, u0, u1, out0, out1, vh_in, gh_in, vh_out,
     if u1.device.type != "cuda":
         raise ValueError(f"device {u1.device}: cpu or cuda only")
     sl = st.slab
-    rc = _build.library().pf_tb_sweep_shard(
-        *_launch_args(st, u0, u1, out0, out1, vh_in, gh_in, vh_out, gh_out,
-                      sig, taps),
-        *sl.owned, *sl.computable, sl.xo,
-        torch.cuda.current_stream(u1.device).cuda_stream)
+    lib = _build.library()
+    with _build.on_device(u1.device):
+        rc = lib.pf_tb_sweep_shard(
+            *_launch_args(st, u0, u1, out0, out1, vh_in, gh_in, vh_out,
+                          gh_out, sig, taps),
+            *sl.owned, *sl.computable, sl.xo,
+            torch.cuda.current_stream(u1.device).cuda_stream)
     _build.check(rc, "tb_sweep_shard")
     tb_sweep_shard.launches += 1
     return out0, out1

@@ -156,8 +156,12 @@ class ShardedTorchEngine:
              torch.from_numpy(gr.src_slots).to(self.devices[gr.src]),
              torch.from_numpy(gr.dst_slots).to(self.devices[gr.dst]))
             for gr in (grafts(parts) if self.TB else [])]
+        # the cards of the device list, each once, in order
+        self.cards = list(dict.fromkeys(d for d in self.devices
+                                        if d.type == "cuda"))
         self._events = None       # CUDA events around the exchanges
         self.exchange_ms = None
+        self.exchange_ms_by_card = None
 
     # -------------------------------------------------------------- state
     def init_state(self):
@@ -180,17 +184,21 @@ class ShardedTorchEngine:
                 left[f][G + S:G + S + w].copy_(right[f][G:G + w])
                 right[f][G - w:G].copy_(left[f][G + S - w:G + S])
 
-    def _event(self):
-        e = torch.cuda.Event(enable_timing=True)
-        e.record(torch.cuda.current_stream(self.devices[0]))
-        return e
+    def _record(self):
+        """A CUDA event on each card's current stream."""
+        es = []
+        for dev in self.cards:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record(torch.cuda.current_stream(dev))
+            es.append(e)
+        return es
 
     def _exchange_timed(self, states, fields, w):
         if self._events is None:
             return self._exchange(states, fields, w)
-        e0 = self._event()
+        e0 = self._record()
         self._exchange(states, fields, w)
-        self._events.append((e0, self._event()))
+        self._events.append((e0, self._record()))
 
     def step(self, states, sigs, outs, n):
         """Advance every slab by one step (in place, buffers rotate).
@@ -256,8 +264,17 @@ class ShardedTorchEngine:
         (Nr, nt) float64, scaled back by infac.  The final per-slab states
         stay in `self.states` (`global_state` assembles them).
 
-        time_exchange (on cards): CUDA events on devices[0]'s current
-        stream bracket every exchange, and `exchange_ms` is their total."""
+        time_exchange (on cards): a CUDA event on each card's current
+        stream before and after every exchange.  PyTorch runs a copy
+        between cards on the source card's stream, behind a wait for the
+        destination's stream, and makes the destination's stream wait for
+        it; so on each card the span between the two events is what the
+        exchange holds that card up: the copies it sends and receives and
+        its waits for the neighbours' planes (their earlier work, and the
+        host's issue where it lags).  `exchange_ms_by_card` is each card's
+        total over the run ({} without a card), `exchange_ms` the largest
+        of them (None without a card).  With every slab on one card, that
+        card's span is the copies alone."""
         d = self.data
         g = d.grid
         npts = g.Nx * g.Ny * g.Nz
@@ -282,7 +299,7 @@ class ShardedTorchEngine:
             spares = [[self._zeros(sh, *sh.slab.shape),
                        self._zeros(sh, 2, MMb, sh.bnl.numel())]
                       for sh in self.shards]
-        timed = time_exchange and self.devices[0].type == "cuda"
+        timed = time_exchange and bool(self.cards)
         self._events = [] if timed else None
         self._sync()
         t0 = time.perf_counter()
@@ -296,8 +313,12 @@ class ShardedTorchEngine:
             n += k
         self._sync()
         self.elapsed = time.perf_counter() - t0
-        self.exchange_ms = (sum(a.elapsed_time(b) for a, b in self._events)
-                            if timed else None)
+        self.exchange_ms_by_card = {
+            str(dev): sum(e0[k].elapsed_time(e1[k])
+                          for e0, e1 in self._events)
+            for k, dev in enumerate(self.cards)} if timed else {}
+        self.exchange_ms = max(self.exchange_ms_by_card.values(),
+                               default=None)
         self._events = None
         self.states = states
         out = torch.zeros((nt, d.out_ixyz.size), dtype=self.dtype,

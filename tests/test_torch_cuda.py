@@ -41,6 +41,11 @@ on the card against its numpy loop, <= 1e-12; the step, tb, pair and
 energy routes with fp32_eps = 1e-3 in fp64 against the plain path with the
 same shift, <= 1e-12; the air / boundary split's probe (K2 timed with CUDA
 events) in a verbose chunked run, its results bitwise a quiet run's.
+With two or more cards (the `cards` fixture skips otherwise): each x-slab
+route with one slab per card (up to four) bitwise equal to the same
+engine with every slab on cuda:0, in fp32 and fp64, closed and open at the
+top; `TorchEngine` on cuda:1 bitwise its run on cuda:0; and K4, K5, K6 and
+K8 called with tensors on cuda:1 while cuda:0 is current.
 """
 
 import dataclasses
@@ -789,3 +794,119 @@ def test_split_probe_on_card(cuda, capsys):
     assert np.array_equal(u_v, u_q)
     for k in (0, 1, 3, 4):
         assert torch.equal(loud.state[k], quiet.state[k])
+
+
+# ---- more than one card: one slab per card, and kernels on another card
+@pytest.fixture
+def cards(cuda):
+    """cuda:0 .. cuda:{D-1}, D = min(4, the cards present): one slab a
+    card."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more cards, this machine has {n}")
+    return [f"cuda:{i}" for i in range(min(4, n))]
+
+
+def _card_sim(scene):
+    return _open_top_sim(False) if scene == "cart-open" else _sim(scene)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("backend", ["step", "pair", "tb"])
+@pytest.mark.parametrize("scene", ["cart", "fcc-folded", "cart-open"])
+def test_one_slab_per_card_equals_slabs_on_one_card(cards, scene, backend,
+                                                    dtype):
+    """Each x-slab route with one slab per card (K5, K6 and K2, in their ABC
+    modes on the open-top box, launched on cards 1-3) against the same
+    engine with every slab on cuda:0: receivers and final state bitwise,
+    launches counted, the exchange timed on every card."""
+    sim, D = _card_sim(scene), len(cards)
+    kw = dict(consts=sim.consts, vox=sim.vox, comms=sim.comms,
+              mats=sim.mats, dtype=dtype, backend=backend, tb=3)
+    many = make_sharded_engine(**kw, devices=cards)
+    assert [sh.dev for sh in many.shards] == list(map(torch.device, cards))
+    n5, n6 = stencil_step_shard.launches, tb_sweep_shard.launches
+    u = many.run(nt=29, verbose=False, time_exchange=True)
+    TB = many.TB or 1
+    assert stencil_step_shard.launches - n5 == D * (29 % TB if TB > 1
+                                                    else 29)
+    assert tb_sweep_shard.launches - n6 == (D * (29 // TB) if TB > 1
+                                             else 0)
+    assert set(many.exchange_ms_by_card) == set(cards)
+    assert many.exchange_ms == max(many.exchange_ms_by_card.values()) >= 0
+    one = make_sharded_engine(**kw, devices=["cuda:0"] * D)
+    u_one = one.run(nt=29, verbose=False)
+    assert np.abs(u_one).max() > 0 and np.array_equal(u, u_one)
+    for a, b in zip(many.global_state(), one.global_state()):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("kw", [{"backend": "step"},
+                                {"backend": "tb", "tb": 3},
+                                {"backend": "pair"}, {"energy_on": True}],
+                         ids=["step", "tb", "pair", "energy"])
+def test_engine_on_another_card_equals_cuda0(cards, kw):
+    """TorchEngine on cuda:1 (K1, K2, K3 in their ABC modes, K1e, K7,
+    launched from a thread whose current card is cuda:0) bitwise its run
+    on cuda:0."""
+    sim = _open_top_sim(False)
+    runs = []
+    for dev in ("cuda:0", cards[1]):
+        e = TorchEngine(consts=sim.consts, vox=sim.vox, comms=sim.comms,
+                        mats=sim.mats, dtype=np.float64, device=dev, **kw)
+        runs.append((e.run(verbose=False), e))
+    (u0, e0), (u1, e1) = runs
+    assert np.abs(u0).max() > 0 and np.array_equal(u0, u1)
+    for a, b in zip(e0.state, e1.state):
+        if torch.is_tensor(a):
+            assert torch.equal(a, b.to(a.device))
+    if e0.energy_on:
+        for a in ("H_tot", "E_lost", "E_in"):
+            assert np.array_equal(getattr(e0, a), getattr(e1, a))
+
+
+def test_wrappers_launch_on_their_tensors_card(cards):
+    """K4, K5, K6 and K8 called with tensors on cuda:1 while cuda:0 is the
+    current card: each launches there (one launch counted) and equals its
+    plain version."""
+    from pffdtd_tpu_torch.analysis.air_abs import (_modal_setup,
+                                                   modal_recurrence,
+                                                   modal_recurrence_plain)
+
+    dev = torch.device(cards[1])
+    assert torch.cuda.current_device() == 0
+    x = torch.randn(4099, device=dev)
+    y = torch.empty_like(x)
+    n = stream.launches
+    stream("copy", x, y)
+    assert stream.launches == n + 1 and torch.equal(y, x)
+    eng = make_sharded_engine(
+        **{k: getattr(_sim("fcc-folded"), k)
+           for k in ("consts", "vox", "comms", "mats")},
+        devices=["cuda:0", dev], dtype=np.float64, backend="tb", tb=3)
+    sh = eng.shards[1]
+    rng = np.random.default_rng(9)
+    t = lambda *s: torch.from_numpy(rng.standard_normal(s)).to(dev)
+    u0, u1 = t(*sh.slab.shape), t(*sh.slab.shape)
+    a, b = torch.zeros_like(u0), torch.zeros_like(u0)
+    n = stencil_step_shard.launches
+    stencil_step_shard(u0, u1, sh.adj, a, sh.slab, eng.data.sc)
+    stencil_step_shard_plain(u0, u1, sh.adj, b, sh.slab, eng.data.sc)
+    assert stencil_step_shard.launches == n + 1
+    own = (slice(*sh.slab.owned), slice(1, -1), slice(1, -1))
+    assert _rel(a[own], b[own]) <= TOL[np.float64]
+    outs = _sweep_pair(tb_sweep_shard, tb_sweep_shard_plain, sh.tb_scene, t,
+                       sh.bnl.numel(), 3, np.float64, dev)
+    mine = torch.from_numpy(sh.part.node_own).to(dev)
+    for i, (k, p) in enumerate(zip(*outs)):
+        k, p = (k[own], p[own]) if i < 2 else \
+            (k[:, mine], p[:, mine]) if i < 4 else (k, p)
+        assert torch.isfinite(k).all() and _rel(k, p) <= TOL[np.float64]
+    setup = _modal_setup(rng.standard_normal((2, 130)), 48000.0, 20.0,
+                         50.0, 0.0)
+    n = modal_scan.launches
+    P = modal_recurrence(*setup, device=str(dev))
+    assert modal_scan.launches == n + 1
+    Pn = modal_recurrence_plain(*setup)
+    assert np.abs(P - Pn).max() <= 1e-12 * np.abs(Pn).max()
+    assert torch.cuda.current_device() == 0

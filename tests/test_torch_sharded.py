@@ -17,7 +17,9 @@ CPU, against the single-device engine and the JAX package.
   bitwise on the owned rows, nodes and receivers, and the ghost-band state
   slots left as they were;
 - the partition: pad, split and assemble round trips, one owner per node
-  and receiver, and grafts that cover every ghost-band node.
+  and receiver, and grafts that cover every ghost-band node;
+- the exchange timer without a card: no card to time, None, and the
+  results of a timed run bitwise an untimed one's.
 """
 
 import numpy as np
@@ -285,3 +287,19 @@ def test_engine_refuses_what_it_cannot_run():
         stencil_step_shard(u, u.clone(), torch.from_numpy(
             split_rows(d.adj_grid, x_slabs(d.grid, 4, 1))[0]),
             torch.zeros(3, 3, 3), sl, d.sc)
+
+
+def test_exchange_timer_without_a_card():
+    """`time_exchange` times each card's stream; a device list that holds
+    no card has none: exchange_ms None, no card's total, and the results
+    bitwise those of a run without the timer."""
+    sim = _sim("fcc-folded", Nt=12)
+    eng = make_sharded_engine(**_kw(sim), devices=["cpu"] * 2,
+                              dtype=np.float64, backend="tb", tb=3)
+    assert eng.cards == []
+    u = eng.run(nt=11, verbose=False, time_exchange=True)
+    assert eng.exchange_ms is None and eng.exchange_ms_by_card == {}
+    state = eng.global_state()
+    assert np.array_equal(u, eng.run(nt=11, verbose=False))
+    for a, b in zip(state, eng.global_state()):
+        assert np.array_equal(a, b)
