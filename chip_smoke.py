@@ -285,6 +285,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from pffdtd_tpu_torch import spans
 from pffdtd_tpu_torch.analysis.air_abs import (_modal_setup,
                                                apply_modal_filter,
                                                apply_modal_filter_plain,
@@ -293,13 +294,13 @@ from pffdtd_tpu_torch.analysis.air_abs import (_modal_setup,
 from pffdtd_tpu_torch.consts import SimConsts
 from pffdtd_tpu_torch.engine.energy import EnergyScene
 from pffdtd_tpu_torch.engine.numpy_ref import NumpyEngine
-from pffdtd_tpu_torch.bench import METRIC as BENCH_METRIC, WRAPPERS, rel_err
+from pffdtd_tpu_torch.bench import METRIC as BENCH_METRIC, rel_err
 from pffdtd_tpu_torch.engine.torch_engine import (BN_ITERS, TorchEngine,
                                                 pick_route)
-from pffdtd_tpu_torch.examples.setup_1e9 import (CHECK_TOL, StageTimer,
-                                                 peak_rss_gb)
+from pffdtd_tpu_torch.examples.setup_1e9 import (CHECK_TOL, peak_rss_gb,
+                                                 stage_seconds)
 from pffdtd_tpu_torch.io.simdata import MMb
-from pffdtd_tpu_torch.kernels import _build
+from pffdtd_tpu_torch.kernels import WRAPPERS, _build
 from pffdtd_tpu_torch.kernels.boundary import boundary_update, \
     boundary_update_plain
 from pffdtd_tpu_torch.kernels.energy import (GRID_THREADS, MID_BLOCKS,
@@ -1464,9 +1465,12 @@ def phase6(sim, eng, u_k, t_k, small):
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) \
             as tmp:
         ck = Path(tmp) / "state.npz"
+        since = time.perf_counter_ns()
         u = eng.run(nt=NT, verbose=False, chunk=NT, checkpoint_every=1,
                     checkpoint_path=ck)
-        write_s, size = eng.host_seconds, ck.stat().st_size
+        write_s = sum(r.seconds for r in spans.records(since)
+                      if r.name == "run.checkpoint")
+        size = ck.stat().st_size
         t0 = time.perf_counter()
         ur = eng.run(nt=NT, verbose=False, checkpoint_path=ck, resume=True)
         read_s = time.perf_counter() - t0
@@ -1620,16 +1624,13 @@ def hall_sim(dims, src, rxyz, mats, fcc, backend, nt, insig, diff):
     of its stages ("rest": the room, grid, constants and SimData)."""
     Lx, Ly, Lz1, Lz2, h = dims
     Ts = SimConsts(h=h, fcc=fcc).Ts
-    with StageTimer() as st:
-        t0 = time.perf_counter()
-        sim = sim_setup_from_room(
-            make_sloped_room(Lx, Ly, Lz1, Lz2, src, rxyz), mats,
-            duration=nt * Ts, insig_type=insig, h=h, fcc_flag=fcc,
-            diff_source=diff, vox_backend=backend, check_adj=True)
-        total = time.perf_counter() - t0
-    rest = total - sum(st.s[k] for k in ("voxelize", "check_adj_full",
-                                         "comms", "clash check"))
-    return sim, dict(st.s, rest=rest, total=total)
+    since = time.perf_counter_ns()
+    t0 = time.perf_counter()
+    sim = sim_setup_from_room(
+        make_sloped_room(Lx, Ly, Lz1, Lz2, src, rxyz), mats,
+        duration=nt * Ts, insig_type=insig, h=h, fcc_flag=fcc,
+        diff_source=diff, vox_backend=backend, check_adj=True)
+    return sim, stage_seconds(since, time.perf_counter() - t0)
 
 
 def prepped(sim):
@@ -1797,8 +1798,7 @@ def phase8(roof):
     nt = rec["nt"]
     require(nt == rec["Nt"] > 608, f"setup_1e9 ran {nt} of {rec['Nt']} "
             f"steps: the direct sound needs about 608")
-    zero = dict.fromkeys(("K1", "K2", "K3", "K5", "K6", "K1e", "K7", "K7g"),
-                         0)
+    zero = dict.fromkeys(WRAPPERS, 0)
     want = {"step": dict(zero, K1=nt, K2=nt),
             "tb": dict(zero, K1=nt % 3, K2=nt % 3, K3=nt // 3),
             "x4": dict(zero, K2=4 * nt, K5=4 * nt),

@@ -112,15 +112,7 @@ import torch
 from pffdtd_tpu_torch.engine.numpy_ref import NumpyEngine
 from pffdtd_tpu_torch.engine.torch_engine import TorchEngine
 from pffdtd_tpu_torch.examples import MV_MODEL, REF
-from pffdtd_tpu_torch.kernels.boundary import boundary_update
-from pffdtd_tpu_torch.kernels.energy import (energy_boundary_pass,
-                                             energy_grid_pass)
-from pffdtd_tpu_torch.kernels.modal import modal_scan
-from pffdtd_tpu_torch.kernels.stencil import (stencil_energy_step,
-                                              stencil_step,
-                                              stencil_step_shard)
-from pffdtd_tpu_torch.kernels.stream import stream
-from pffdtd_tpu_torch.kernels.tb import tb_sweep, tb_sweep_shard
+from pffdtd_tpu_torch.kernels import WRAPPERS
 from pffdtd_tpu_torch.parallel.sharded_engine import make_sharded_engine
 from pffdtd_tpu_torch.scene import (fold_fcc_sim, rotate_sim, sort_sim,
                                     synthetic_box_sim)
@@ -137,14 +129,6 @@ DEF11 = np.array([[d, e, f] for d, e, f in zip(
 # the headline's receivers, offsets from the source (1.6 and 2.1 m;
 # chip_smoke.py's)
 HEADLINE_RX = np.array([[1.3, -0.8, 0.6], [-1.3, 1.4, -0.9]])
-# the kernels' wrappers by name (chip_smoke.py counts with them too); each
-# adds one to its `launches` where it launches its kernel.  K7's boundary
-# pass (K7) and its grid pass (K7g, which the energy route no longer
-# launches: K1e computes it) count apart
-WRAPPERS = {"K1": stencil_step, "K2": boundary_update, "K3": tb_sweep,
-            "K4": stream, "K5": stencil_step_shard, "K6": tb_sweep_shard,
-            "K7": energy_boundary_pass, "K8": modal_scan,
-            "K1e": stencil_energy_step, "K7g": energy_grid_pass}
 # one record a counted run of this process (`counted`)
 LAUNCHES: list = []
 

@@ -16,6 +16,7 @@ import numpy as np
 from numpy import cos, pi, sin
 
 from pffdtd_tpu_torch.io.simdata import CommsData
+from pffdtd_tpu_torch.spans import span
 from pffdtd_tpu_torch.utils import iceil, sub2ind3d
 
 _OFF8 = np.array([[0, 0, 0], [-1, 0, 0], [0, -1, 0], [0, 0, -1],
@@ -120,10 +121,12 @@ class SimComms:
         xv, yv, zv, h = read_cart_grid(folder)
         return cls(xv, yv, zv, h, c.Ts, c.l2, fcc=c.fcc)
 
+    @span("comms.prepare")
     def prepare_source_pts(self, Sxyz):
         self.in_alpha, self.in_ixyz = linear_interp_weights(
             Sxyz, self.xv, self.yv, self.zv, self.h, self.fcc)
 
+    @span("comms.prepare")
     def prepare_receiver_pts(self, Rxyz):
         Rxyz = np.atleast_2d(Rxyz)
         Nr = Rxyz.shape[0]
@@ -133,6 +136,7 @@ class SimComms:
             self.out_alpha[r], self.out_ixyz[r] = linear_interp_weights(
                 Rxyz[r], self.xv, self.yv, self.zv, self.h, self.fcc)
 
+    @span("comms.prepare")
     def prepare_source_signals(self, duration, sig_type="impulse"):
         Nt = iceil(duration / self.Ts)
         sig = make_source_signal(sig_type, Nt, self.Ts)
@@ -141,6 +145,7 @@ class SimComms:
         in_sigs *= (0.5 * self.l2 / self.h) if self.fcc else (self.l2 / self.h)
         self.in_sigs = in_sigs
 
+    @span("comms.diff_source")
     def diff_source(self):
         if not self._diff:
             self.in_sigs = diff_signal(self.in_sigs, self.Ts)
@@ -162,6 +167,7 @@ class SimComms:
 
         write_comms(save_folder, self.to_comms_data(), compress=compress)
 
+    @span("comms.clash_check")
     def check_for_clashes(self, bn_ixyz):
         """Sources/receivers must not sit on boundary nodes (scheme assumption)."""
         for name, ixyz in (("in", self.in_ixyz), ("out", self.out_ixyz)):

@@ -74,6 +74,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from pffdtd_tpu_torch import spans
 from pffdtd_tpu_torch.engine.data import EngineData, mirror_index
 from pffdtd_tpu_torch.engine.energy import EnergyScene
 from pffdtd_tpu_torch.io.simdata import MMb, read_sim_folder, write_outputs
@@ -134,8 +135,9 @@ class TorchEngine:
             raise RuntimeError("device cuda: torch.cuda.is_available() is "
                                "False; pass device='cpu' to run the plain "
                                "PyTorch versions on the CPU")
-        self.data = d = EngineData(consts, vox, comms, mats, dtype=dtype,
-                                   fp32_eps=fp32_eps)
+        with spans.span("engine.data"):
+            self.data = d = EngineData(consts, vox, comms, mats, dtype=dtype,
+                                       fp32_eps=fp32_eps)
         self.dtype = _TORCH_DTYPE[d.dtype]
         self.Nt = d.Nt
         self.use_kernels = use_kernels
@@ -152,27 +154,29 @@ class TorchEngine:
         def up(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-        self.adj = up(d.adj_grid)
-        self.bnl = up(d.bnl_ixyz)
-        self.ssaf = up(d.ssaf_bnl)
-        self.mat = up(d.mat_bnl)
-        self.coef_table = up(d.coef_table)
-        self.beta = up(d.beta)
-        self.abcq = None if d.abcq_bnl is None else up(d.abcq_bnl)
-        self.in_ixyz = up(d.in_ixyz)
-        self.out_ixyz_f = up(mirror_index(d.out_ixyz, d.grid))
-        self.energy_scene = None
-        if energy_on:
-            self.energy_scene = EnergyScene.make(
-                d, adj=self.adj, ssaf=self.ssaf, mat=self.mat,
-                in_ixyz=self.in_ixyz)
+        with spans.span("engine.upload", mem=dev):
+            self.adj = up(d.adj_grid)
+            self.bnl = up(d.bnl_ixyz)
+            self.ssaf = up(d.ssaf_bnl)
+            self.mat = up(d.mat_bnl)
+            self.coef_table = up(d.coef_table)
+            self.beta = up(d.beta)
+            self.abcq = None if d.abcq_bnl is None else up(d.abcq_bnl)
+            self.in_ixyz = up(d.in_ixyz)
+            self.out_ixyz_f = up(mirror_index(d.out_ixyz, d.grid))
+            self.energy_scene = None
+            if energy_on:
+                self.energy_scene = EnergyScene.make(
+                    d, adj=self.adj, ssaf=self.ssaf, mat=self.mat,
+                    in_ixyz=self.in_ixyz)
         self.tb_scene = None
         if self.TB is not None:
-            self.tb_scene = TBScene.make(
-                d, self.TB, adj=self.adj, bnl=self.bnl, ssaf=self.ssaf,
-                mat=self.mat, coef_table=self.coef_table, beta=self.beta,
-                in_ixyz=self.in_ixyz, out_ixyz_f=self.out_ixyz_f,
-                abcq=self.abcq)
+            with spans.span("engine.tb_scene", mem=dev):
+                self.tb_scene = TBScene.make(
+                    d, self.TB, adj=self.adj, bnl=self.bnl, ssaf=self.ssaf,
+                    mat=self.mat, coef_table=self.coef_table, beta=self.beta,
+                    in_ixyz=self.in_ixyz, out_ixyz_f=self.out_ixyz_f,
+                    abcq=self.abcq)
 
     # -------------------------------------------------------------- state
     def _zeros(self, *shape):
@@ -319,6 +323,7 @@ class TorchEngine:
             self._bn_ms = (time.perf_counter() - t0) / BN_ITERS * 1e3
         return self._bn_ms
 
+    @spans.numbered_run
     def run(self, nt: int | None = None, verbose: bool = True,
             chunk: int | None = None, checkpoint_every: int | None = None,
             checkpoint_path=None, resume: bool = False, on_chunk=None):
@@ -345,29 +350,37 @@ class TorchEngine:
         step it holds (`load_checkpoint`), keeping its receiver rows.
 
         `self.elapsed` times the loop without the hook, the checkpoint I/O
-        and the split's K2 probe, which `self.host_seconds` holds;
-        `self.mvps` is over the steps this call ran."""
+        and the split's K2 probe; `self.mvps` is over the steps this call
+        ran.  Each call is a numbered run (`spans.numbered_run`) with the
+        spans run.signals (the signals' upload), run.state (the receiver
+        rows, the energy carry, the state and the TB route's spare
+        buffers: what a run allocates on the device, the new state beside
+        the last run's, which it then frees), run.checkpoint (each
+        save) and run.receivers (the rows' download and scaling), none of
+        them inside the step loop."""
         d = self.data
         g = d.grid
         npts = g.Nx * g.Ny * g.Nz
         nt = self.Nt if nt is None else nt
-        sigs = torch.from_numpy(
-            (d.in_sigs[:, :nt] / d.infac).T.astype(d.dtype).copy()).to(
-                self.device)                                 # (nt, Ns)
-        out = torch.zeros((nt, d.out_ixyz.size), dtype=self.dtype,
-                          device=self.device)
-        en = self._energy_carry(nt) if self.energy_on else None
-        self.state = state = self.init_state()
+        with spans.span("run.signals"):
+            sigs = torch.from_numpy(
+                (d.in_sigs[:, :nt] / d.infac).T.astype(d.dtype).copy()).to(
+                    self.device)                             # (nt, Ns)
+        TB = self.TB or 1
+        with spans.span("run.state", mem=self.device):
+            out = torch.zeros((nt, d.out_ixyz.size), dtype=self.dtype,
+                              device=self.device)
+            en = self._energy_carry(nt) if self.energy_on else None
+            self.state = state = self.init_state()
+            spare = None
+            if TB > 1:   # the sweep's fourth grid and second vh, gh
+                spare = [self._zeros(*g.shape), self._zeros(MMb, d.Nbl),
+                         self._zeros(MMb, d.Nbl)]
         n0 = 0
         if resume and checkpoint_path and Path(checkpoint_path).exists():
             n0 = self.load_checkpoint(checkpoint_path, state, out, en)
             if verbose:
                 print(f"--ENGINE(torch): resumed at step {n0}")
-        TB = self.TB or 1
-        spare = None
-        if TB > 1:   # the sweep's fourth grid and second vh, gh
-            spare = [self._zeros(*g.shape), self._zeros(MMb, d.Nbl),
-                     self._zeros(MMb, d.Nbl)]
         chunk = -(-(chunk or max(nt - n0, 1)) // TB) * TB
         self._sync()
         t0 = tb = time.perf_counter()
@@ -410,17 +423,18 @@ class TorchEngine:
             if on_chunk is not None:
                 on_chunk(n, state)
             if ckpt:
-                self.save_checkpoint(checkpoint_path, n, state, out, en)
+                with spans.span("run.checkpoint"):
+                    self.save_checkpoint(checkpoint_path, n, state, out, en)
             tb = time.perf_counter()
             t_out += tb - t
         self._sync()
         self.elapsed = time.perf_counter() - t0 - t_out
-        self.host_seconds = t_out
-        self.u_out = np.float64(out.T.cpu().numpy()) * d.infac
-        if en is not None:   # energies scale back by infac**2
-            e = lambda t: np.float64(t.cpu().numpy()) * d.infac ** 2
-            self.H_tot, self.E_lost, self.E_in = (
-                e(en.H_rows), e(en.E_lost_rows), e(en.E_in_rows))
+        with spans.span("run.receivers"):
+            self.u_out = np.float64(out.T.cpu().numpy()) * d.infac
+            if en is not None:   # energies scale back by infac**2
+                e = lambda t: np.float64(t.cpu().numpy()) * d.infac ** 2
+                self.H_tot, self.E_lost, self.E_in = (
+                    e(en.H_rows), e(en.E_lost_rows), e(en.E_in_rows))
         self.mvps = npts * (nt - n0) / self.elapsed / 1e6
         if verbose:
             route = self.backend if self.TB is None else \

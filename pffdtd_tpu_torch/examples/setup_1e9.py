@@ -51,30 +51,26 @@ import time
 import numpy as np
 import torch
 
-from pffdtd_tpu_torch.comms import SimComms
+from pffdtd_tpu_torch import spans
 from pffdtd_tpu_torch.engine.torch_engine import TorchEngine
 from pffdtd_tpu_torch.examples import check_device
 from pffdtd_tpu_torch.geometry.room import RoomGeo
 from pffdtd_tpu_torch.io.simdata import MMb
-from pffdtd_tpu_torch.kernels import _build
+from pffdtd_tpu_torch.kernels import WRAPPERS, _build
 from pffdtd_tpu_torch.kernels.boundary import boundary_update, \
     boundary_update_plain
-from pffdtd_tpu_torch.kernels.energy import (energy_boundary_pass,
-                                             energy_grid_pass, scratch_size)
-from pffdtd_tpu_torch.kernels.stencil import (stencil_energy_step,
-                                              stencil_step,
+from pffdtd_tpu_torch.kernels.energy import scratch_size
+from pffdtd_tpu_torch.kernels.stencil import (stencil_step,
                                               stencil_step_plain,
                                               stencil_step_shard,
                                               stencil_step_shard_plain)
 from pffdtd_tpu_torch.kernels.stream import time_ms
-from pffdtd_tpu_torch.kernels.tb import tb_sweep, tb_sweep_plain, \
-    tb_sweep_shard
+from pffdtd_tpu_torch.kernels.tb import tb_sweep, tb_sweep_plain
 from pffdtd_tpu_torch.parallel.sharded_engine import make_sharded_engine
 from pffdtd_tpu_torch.scene import mats_from_DEF_list
 from pffdtd_tpu_torch.scene_setup import sim_setup_from_room
 from pffdtd_tpu_torch.voxelizer import native
 from pffdtd_tpu_torch.voxelizer.grid import CartGrid
-from pffdtd_tpu_torch.voxelizer.vox import VoxScene
 
 L = (32.0, 25.0, 20.0)
 SXYZ = (12.0, 11.0, 9.0)
@@ -91,10 +87,6 @@ TOL = 1e-5          # receivers between routes, of max |u_out|
 BALANCE = 1e-9      # the fp64 energy balance, the JAX package's bar for a
                     # real room
 SEED = 0
-KERNELS = {"K1": stencil_step, "K2": boundary_update, "K3": tb_sweep,
-           "K5": stencil_step_shard, "K6": tb_sweep_shard,
-           "K1e": stencil_energy_step, "K7": energy_boundary_pass,
-           "K7g": energy_grid_pass}
 # fp32 bars of one call against the plain version (chip_smoke.py phase 2)
 CHECK_TOL = {"K1": 1e-6, "K2": 1e-6, "K3": 1e-5, "K5": 1e-6}
 # device memory a check takes, in grids (slabs for K5) of the working
@@ -107,48 +99,29 @@ CHECK_TOL = {"K1": 1e-6, "K2": 1e-6, "K3": 1e-5, "K5": 1e-6}
 CHECK_GRIDS = {"K1": 13, "K2": 5, "K3": 16, "K5": 13}
 TIME_REPS = 10
 
-# the stages of sim_setup_from_room that StageTimer times: label -> the
-# (owner, attribute) of each function it wraps
-SETUP_STAGES = {
-    "voxelize": [(VoxScene, "calc_adj")],
-    "of which native": [(native, "calc_adj")],
-    "of which symmetrize": [(VoxScene, "_symmetrize_adj")],
-    "of which materials + SAF": [(VoxScene, "_finalise_materials")],
-    "check_adj_full": [(VoxScene, "check_adj_full")],
-    "comms": [(SimComms, m) for m in (
-        "prepare_source_pts", "prepare_receiver_pts",
-        "prepare_source_signals", "diff_source")],
-    "of which diff_source": [(SimComms, "diff_source")],
-    "clash check": [(SimComms, "check_for_clashes")],
+# sim_setup_from_room's stages: label -> the spans it adds up
+STAGES = {
+    "voxelize": ("vox.adj",),
+    "of which native": ("vox.native",),
+    "of which symmetrize": ("vox.symmetrize",),
+    "of which materials + SAF": ("vox.materials",),
+    "check_adj_full": ("vox.check_adj_full",),
+    "comms": ("comms.prepare", "comms.diff_source"),
+    "of which diff_source": ("comms.diff_source",),
+    "clash check": ("comms.clash_check",),
 }
 
 
-class StageTimer:
-    """While entered, each function of SETUP_STAGES adds its seconds to its
-    label in `s` (the originals are put back on exit)."""
-
-    def __init__(self):
-        self.s = {k: 0.0 for k in SETUP_STAGES}
-
-    def __enter__(self):
-        self.saved = []
-        for label, fns in SETUP_STAGES.items():
-            for owner, name in fns:
-                fn = getattr(owner, name)
-                self.saved.append((owner, name, fn))
-
-                def timed(*a, _label=label, _fn=fn, **kw):
-                    t0 = time.perf_counter()
-                    try:
-                        return _fn(*a, **kw)
-                    finally:
-                        self.s[_label] += time.perf_counter() - t0
-                setattr(owner, name, timed)
-        return self
-
-    def __exit__(self, *exc):
-        for owner, name, fn in self.saved:
-            setattr(owner, name, fn)
+def stage_seconds(since_ns: int, total: float) -> dict:
+    """Host seconds of each of STAGES, from the program's spans that
+    started at or after `since_ns` (`time.perf_counter_ns`), "rest" (the
+    `total` seconds outside every span not nested in another) and
+    "total"."""
+    recs = spans.records(since_ns)
+    s = {label: sum(r.seconds for r in recs if r.name in names)
+         for label, names in STAGES.items()}
+    rest = total - sum(r.seconds for r in recs if r.parent is None)
+    return {**s, "rest": rest, "total": total}
 
 
 def peak_rss_gb():
@@ -187,30 +160,28 @@ def nudge_h(h, rg, mult=8):
 def setup(h):
     """`sim_setup_from_room` of the box with the native voxelizer and
     check_adj_full, in memory; returns (sim, host seconds per stage: the
-    g++ build, the SETUP_STAGES, "rest" and "total")."""
+    g++ build, then `stage_seconds`)."""
     rg = box_room()
     mats = mats_from_DEF_list([np.array(DEF)])
     t0 = time.perf_counter()
     native.load()
     t_build = time.perf_counter() - t0
-    with StageTimer() as st:
-        t0 = time.perf_counter()
-        sim = sim_setup_from_room(rg, mats, duration=DURATION,
-                                  insig_type="impulse", h=h, check_adj=True,
-                                  vox_backend="native")
-        total = time.perf_counter() - t0
-    rest = total - sum(st.s[k] for k in ("voxelize", "check_adj_full",
-                                         "comms", "clash check"))
-    return sim, {"g++ build": t_build, **st.s, "rest": rest, "total": total}
+    since = time.perf_counter_ns()
+    t0 = time.perf_counter()
+    sim = sim_setup_from_room(rg, mats, duration=DURATION,
+                              insig_type="impulse", h=h, check_adj=True,
+                              vox_backend="native")
+    total = time.perf_counter() - t0
+    return sim, {"g++ build": t_build, **stage_seconds(since, total)}
 
 
 def reset_launches():
-    for fn in KERNELS.values():
+    for fn in WRAPPERS.values():
         fn.launches = 0
 
 
 def launches():
-    return {k: fn.launches for k, fn in KERNELS.items()}
+    return {k: fn.launches for k, fn in WRAPPERS.items()}
 
 
 def build_engine(sim, route, dtype, devices):
@@ -540,9 +511,10 @@ def main(argv=None):
                      else "cpu")
     rec["nt"], rec["routes"], outs = nt, {}, {}
     if any(torch.device(d).type == "cuda" for d in devices or [dev]):
-        t0 = time.perf_counter()     # nvcc, or a load: outside the loops
+        since = time.perf_counter_ns()  # nvcc, or a load: outside the loops
         _build.library()
-        rec["kernels_build_s"] = time.perf_counter() - t0
+        rec["kernels_build_s"] = sum(r.seconds for r in spans.records(since)
+                                     if r.name == "kernels.library")
         print(f"[setup_1e9] kernels built or loaded in "
               f"{rec['kernels_build_s']:.2f} s", flush=True)
     for route in routes:

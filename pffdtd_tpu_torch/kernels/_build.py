@@ -29,6 +29,8 @@ from pathlib import Path
 
 import torch
 
+from pffdtd_tpu_torch.spans import span
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
@@ -118,8 +120,13 @@ def _nvcc() -> str:
 def library() -> KernelLibrary:
     """Build (once per source hash) and load the kernel library."""
     global _LIB
-    if _LIB is not None:
-        return _LIB
+    if _LIB is None:
+        _LIB = _build_and_load()
+    return _LIB
+
+
+@span("kernels.library")
+def _build_and_load() -> KernelLibrary:
     srcs = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in srcs + sorted(CSRC.glob("*.cuh")):
@@ -152,8 +159,7 @@ def library() -> KernelLibrary:
             raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
                                f"{r.stdout}{r.stderr}")
         os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
-    _LIB = KernelLibrary(so, time.perf_counter() - t0, log)
-    return _LIB
+    return KernelLibrary(so, time.perf_counter() - t0, log)
 
 
 _CURRENT = contextlib.nullcontext()

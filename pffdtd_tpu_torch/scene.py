@@ -31,6 +31,7 @@ from pffdtd_tpu_torch.consts import SimConsts
 from pffdtd_tpu_torch.geometry.room import RoomGeo
 from pffdtd_tpu_torch.io.simdata import (MMb, MatsData, SimConstsData,
                                          SimData, VoxData)
+from pffdtd_tpu_torch.spans import span
 from pffdtd_tpu_torch.utils import ind2sub3d
 from pffdtd_tpu_torch.voxelizer.grid import CartGrid
 from pffdtd_tpu_torch.voxelizer.vox import CART_VECTORS, FCC_VECTORS
@@ -117,6 +118,7 @@ def make_sloped_room(Lx=2.0, Ly=3.0, Lz1=1.6, Lz2=2.5, Sxyz=None,
                                ["floor", "walls"], Sxyz, Rxyz)
 
 
+@span("scene.box")
 def synthetic_box_sim(Lx=8.0, Ly=6.0, Lz=5.0, h=0.02, duration=None, Nt=None,
                       fcc=False, lossy=True, Tc=20.0, rh=50.0,
                       insig_type="impulse", diff_source=None,
@@ -366,6 +368,7 @@ def rotation_of(sim: SimData, orient: str = "auto") -> tuple:
     return _descending(N)
 
 
+@span("scene.rotate")
 def rotate_sim(sim: SimData, tr=None, orient: str = "auto") -> SimData:
     """Permute grid dims: by an explicit `tr`, else by `rotation_of(sim,
     orient)`."""
@@ -389,6 +392,7 @@ def rotate_sim(sim: SimData, tr=None, orient: str = "auto") -> SimData:
     return replace(sim, vox=vox2, comms=comms2)
 
 
+@span("scene.fold")
 def fold_fcc_sim(sim: SimData) -> SimData:
     """Fold the interleaved FCC grid (fcc_flag=1) across mid-y -> flag 2."""
     if sim.consts.fcc_flag != 1 or sim.vox.Ny % 2:
@@ -416,6 +420,7 @@ def fold_fcc_sim(sim: SimData) -> SimData:
     return replace(sim, vox=vox2, comms=comms2, consts=consts2)
 
 
+@span("scene.sort")
 def sort_sim(sim: SimData) -> SimData:
     """Sort boundary/io index arrays ascending; record out_reorder."""
     vox, comms = sim.vox, sim.comms

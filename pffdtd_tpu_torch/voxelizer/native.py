@@ -23,6 +23,8 @@ from pathlib import Path
 
 import numpy as np
 
+from pffdtd_tpu_torch.spans import span
+
 PKG = Path(__file__).resolve().parents[1]
 SRC = PKG.parent / "native" / "voxelizer.cpp"
 BUILD = PKG / "_build"
@@ -87,6 +89,7 @@ def pack_tris(tp) -> np.ndarray:
     ], axis=1), np.float64)
 
 
+@span("vox.native")
 def calc_adj(vs, block_size: int = 32):
     """Native adjacency computation for a VoxScene; returns the bn arrays."""
     lib = load()

@@ -21,6 +21,7 @@ import numpy as np
 from pffdtd_tpu_torch.geometry.predicates import (tri_box_intersect,
                                                   tri_ray_intersect)
 from pffdtd_tpu_torch.geometry.room import RoomGeo
+from pffdtd_tpu_torch.spans import span
 from pffdtd_tpu_torch.utils import dotv, sub2ind3d
 from pffdtd_tpu_torch.voxelizer.grid import CartGrid
 
@@ -65,6 +66,7 @@ class VoxScene:
         print(f"--VOX_SCENE: {s}")
 
     # ------------------------------------------------------------------ main
+    @span("vox.adj")
     def calc_adj(self, block_size: int = 32, backend: str = "auto"):
         """Compute boundary nodes, adjacency, materials and SAF weights."""
         if backend in ("auto", "native"):
@@ -81,6 +83,7 @@ class VoxScene:
         self._symmetrize_adj()
         self._finalise_materials()
 
+    @span("vox.symmetrize")
     def _symmetrize_adj(self):
         """Enforce mutual adjacency: a cut leg cuts BOTH directions.
 
@@ -275,6 +278,7 @@ class VoxScene:
         return ixyz, adj[q], tidx[q], ndist[q]
 
     # --------------------------------------------------------- consolidation
+    @span("vox.materials")
     def _finalise_materials(self):
         """Material sidedness + SAF staircase correction (vox_scene.py:392-431)."""
         rg, cg = self.rg, self.cg
@@ -312,6 +316,7 @@ class VoxScene:
                 self.print(f"mat {rg.mat_str[i]}: corrected area {err:+.3f}% over")
 
     # ---------------------------------------------------------------- checks
+    @span("vox.check_adj_full")
     def check_adj_full(self, chunk: int = 1 << 24):
         """Mutual-adjacency check: adj[p,k] == adj[p+v_k, opp(k)] everywhere.
 

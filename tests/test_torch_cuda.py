@@ -40,7 +40,8 @@ path, a resume at a step that is no multiple of TB, and the modal filter
 on the card against its numpy loop, <= 1e-12; the step, tb, pair and
 energy routes with fp32_eps = 1e-3 in fp64 against the plain path with the
 same shift, <= 1e-12; the air / boundary split's probe (K2 timed with CUDA
-events) in a verbose chunked run, its results bitwise a quiet run's.
+events) in a verbose chunked run, its results bitwise a quiet run's; the
+spans' allocator readings over two runs, whose second sets the peak.
 With two or more cards (the `cards` fixture skips otherwise): each x-slab
 route with one slab per card (up to four) bitwise equal to the same
 engine with every slab on cuda:0, in fp32 and fp64, closed and open at the
@@ -49,11 +50,13 @@ K8 called with tensors on cuda:1 while cuda:0 is current.
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
 import torch
 
+from pffdtd_tpu_torch import spans
 from pffdtd_tpu_torch.engine.torch_engine import BN_ITERS, TorchEngine
 from pffdtd_tpu_torch.kernels import tb as ktb
 from pffdtd_tpu_torch.io.simdata import MMb
@@ -795,6 +798,28 @@ def test_split_probe_on_card(cuda, capsys):
     for k in (0, 1, 3, 4):
         assert torch.equal(loud.state[k], quiet.state[k])
 
+
+
+def test_spans_read_the_peak_of_two_runs(cuda):
+    """A run allocates its state while the last run's is held, then frees
+    the last one: the second run's `run.state` reads the peak of both runs
+    (within 1%) at its exit, its entry allocation holds the first run's
+    state, and its exit allocation is back to one state."""
+    eng = _engine("fcc-folded", np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    since = time.perf_counter_ns()
+    eng.run(nt=8, verbose=False)
+    eng.run(nt=8, verbose=False)
+    first, second = [r for r in spans.records(since)
+                     if r.name == "run.state"]
+    peak = torch.cuda.max_memory_allocated()
+    assert abs(second.mem_peak - peak) <= 0.01 * peak
+    state = sum(t.numel() * t.element_size() for t in eng.state)
+    assert first.mem_out - first.mem_in >= state
+    assert second.mem_in - first.mem_in >= state
+    assert second.mem_peak - second.mem_in >= state
+    assert abs(second.mem_out - first.mem_out) <= 0.01 * peak
 
 # ---- more than one card: one slab per card, and kernels on another card
 @pytest.fixture
