@@ -956,7 +956,7 @@ def k1e_print_require(where, r, fp32):
 
 
 def grid_blocks(grid):
-    """Blocks of K1's launch, and of K7's grid pass: z-runs of
+    """Blocks of K1e's launch, and of K7's grid pass: z-runs of
     GRID_THREADS points of the interior's (x, y) rows."""
     return (-(-(grid.Nz - 2) // GRID_THREADS) * (grid.Ny - 2)
             * (grid.Nx - 2))
@@ -2390,8 +2390,11 @@ def main():
           f"{named(c_ost)}); receivers bitwise equal", flush=True)
     del eng_open, eng_open_step
     torch.cuda.empty_cache()
+    geo = stencil_step.geometry
     print(f"[4] launches per {NT} steps: tb TB=3 {named(c_tb)}, "
-          f"pair {named(c_pr)}, step {named(c_k)}", flush=True)
+          f"pair {named(c_pr)}, step {named(c_k)}; K1's last launch: "
+          f"tiles {geo.By} x {geo.Bz}, chunks of {geo.Cx} rows, "
+          f"{geo.blocks} blocks", flush=True)
     for name, u, t in (("tb TB=3", u_tb, t_tb), ("pair", u_pr, t_pr),
                        ("step", u_k, t_k), ("plain", u_p, min(t_p))):
         err = np.abs(u - u_p).max() / scale

@@ -45,18 +45,19 @@ _TB_ARGS = ([_i] * 3 + [_vp] * 5 + [_i] * 8 + [_d] * 7 + [_vp] * 4 + [_ll]
 # C entry points: name -> argtypes (each returns cudaGetLastError() as int)
 SIGNATURES = {
     # dtype(0=f32,1=f64), nn, u0, u1, adj, out, Nx, Ny, Nz, folded,
-    # a2, sl2, lQ1, lQ2, lQ3, stream
+    # By, Bz, Cx, a2, sl2, lQ1, lQ2, lQ3, stream
     "pf_stencil_step": [_i, _i, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
-                        _d, _d, _d, _d, _d, _vp],
+                        _i, _i, _i, _d, _d, _d, _d, _d, _vp],
     # dtype, nn, u0, u1, adj, out, Lu, part, npart, Nx, Ny, Nz, folded,
     # a2, sl2, lQ1, lQ2, lQ3, lfac, inv_l2, stream
     "pf_stencil_energy_step": [_i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _ll,
                                _i, _i, _i, _i, _d, _d, _d, _d, _d, _d, _d,
                                _vp],
     # dtype, nn, u0, u1, adj, out, Nx (global), Ny, Nz, folded, G, S, xo,
-    # a2, sl2, lQ1, lQ2, lQ3, stream
+    # By, Bz, Cx, a2, sl2, lQ1, lQ2, lQ3, stream
     "pf_stencil_step_shard": [_i, _i, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
-                              _i, _i, _i, _d, _d, _d, _d, _d, _vp],
+                              _i, _i, _i, _i, _i, _i, _d, _d, _d, _d, _d,
+                              _vp],
     # dtype, unew, u0, bnl, ssaf, mat, coef, beta, vh, gh, nbl, l, lo2,
     # abcq (or null), lQ1, lQ2, lQ3, stream
     "pf_boundary_update": [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,

@@ -28,13 +28,14 @@ from pffdtd_tpu_torch.kernels.probe import (SHAPE, Fields, build_lib,
 ROUNDS = 3
 
 # the late load: the line that loads L u^{n-1} moves after u^{n+1}'s store
-EARLY = "    const T L_prev = ENERGY ? e.Lu[c] : T(0);\n"
-GRID_PASS_PLACE = ("    if (ENERGY) {  // K7's grid pass on the same "
-                   "registers, in its order\n")
-BLOCK_SUM = "    block_sums<2, kThreads>(sums, e.part + 2 * b);\n"
+U1C = "    const T* __restrict__ u1c = u1 + c;\n"
+EARLY = "    const T L_prev = e.Lu[c];\n" + U1C
+GRID_PASS_PLACE = ("    {  // K7's grid pass on the same registers, in its "
+                   "order\n")
+BLOCK_SUM = "  block_sums<2, kThreads>(sums, e.part + 2 * b);\n"
 # keeps the sums live (the compiler would drop the energy work) without the
 # block sum and its barrier
-NO_BLOCK_SUM = "    if (sums[0] == 12345.0) e.part[2 * b] = sums[1];\n"
+NO_BLOCK_SUM = "  if (sums[0] == 12345.0) e.part[2 * b] = sums[1];\n"
 
 
 def _edit(src: str, edits) -> str:
@@ -47,8 +48,8 @@ def _edit(src: str, edits) -> str:
 
 
 def _late(src: str) -> str:
-    return _edit(src, [(EARLY, ""), (GRID_PASS_PLACE, GRID_PASS_PLACE
-                                     + "      const T L_prev = e.Lu[c];\n")])
+    return _edit(src, [(EARLY, U1C), (GRID_PASS_PLACE, GRID_PASS_PLACE
+                                      + "      const T L_prev = e.Lu[c];\n")])
 
 
 def main(argv=None):
@@ -66,6 +67,8 @@ def main(argv=None):
     libs = {k: build_lib(f"k1e_{i}", {"stencil.cu": v, "energy.cu": energy},
                          csrc)
             for i, (k, v) in enumerate(variants.items())}
+    for lib in libs.values():
+        lib.march = True   # this tree's K1
     f = Fields(torch.float32)
     calls = {f"K1e ({k})": f.k1e(lib) for k, lib in libs.items()}
     calls["K1"] = f.k1(libs["tree"])

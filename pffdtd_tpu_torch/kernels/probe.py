@@ -7,16 +7,20 @@ if its K1 calls K7's middle stage) for K1 and K1e, `boundary.cu` for K2,
 `tb.cu` and `tb_shard.cu` for K3 (and K6).  Both trees' sources are built
 by nvcc, with the kernels' flags, into libraries of their own under
 `_build/probe/`.  For each kernel:
-1. the SASS of the instances that both trees have (K1/K5 with the energy
-   mode off; K1e and its shard instances; K2 without its ABC mode; K3 and
-   K6 without theirs, at every dtype, adjacency, TB and row width) is
+1. the SASS of the instances that both trees have (K1's march, which K5
+   shares, at every tile width; K1e; K2 without its ABC mode; K3 and K6
+   without theirs, at every dtype, adjacency, TB and row width) is
    compared instruction for instruction;
 2. the kernel is timed from both in turns (base, tree, tree, base, twice),
    fp32 and fp64: K1 and K1e on random fields at the headline cell's
-   shapes (792 x 310 x 510, FCC, every leg set), K2 on the headline cell's
-   lossy nodes (the 36 x 28 x 23 m folded-FCC box at h = 0.046: 1,169,067
-   nodes) and K3 (TB = 3) on the headline cell, each from a seeded random
-   state, after one call of each compared bit for bit;
+   shapes (792 x 310 x 510, FCC, every leg set), K1 also at the benchmark
+   cell's (1628 x 635 x 1048, FCC) and on the 1.049 Gvox Cartesian box
+   (1288 x 1008 x 808, every leg set), after one call of each compared bit
+   for bit (a base built before K1's march is called without its tiles),
+   K2 on the headline cell's lossy nodes (the 36 x 28 x 23 m folded-FCC
+   box at h = 0.046: 1,169,067 nodes) and K3 (TB = 3) on the headline
+   cell, each from a seeded random state, after one call of each compared
+   bit for bit;
 3. K2 and K3: on the same box without its top wall (its lossy nodes on the
    top ABC layer flagged), this tree's kernel in its ABC mode and without
    it on the same inputs, in turns (fp32).
@@ -44,23 +48,31 @@ from pffdtd_tpu_torch.kernels import _build
 from pffdtd_tpu_torch.kernels.stream import time_ms
 
 SHAPE = (792, 310, 510)
+# K1's shapes (grid, FCC): the headline, the benchmark cell, the Cartesian
+# 1.049 Gvox box
+K1_SHAPES = ((SHAPE, True), ((1628, 635, 1048), True),
+             ((1288, 1008, 808), False))
 REPS = 20
 PROBE = _build.BUILD / "probe"
 IN_TURNS = ("base", "tree", "tree", "base") * 2
 _vp, _ll, _d, _i = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double,
                     ctypes.c_int)
+# pf_stencil_step before K1's march: no By, Bz, Cx
+K1_BASE_ARGS = [_i, _i] + [_vp] * 4 + [_i] * 4 + [_d] * 5 + [_vp]
 # pf_boundary_update before K2's ABC mode: no abcq, lQ1..lQ3
 K2_BASE_ARGS = [_i] + [_vp] * 9 + [_ll, _d, _d, _vp]
 # pf_tb_sweep before K3's ABC mode: no abcq
 K3_BASE_ARGS = _build.SIGNATURES["pf_tb_sweep"][:-2] + [_vp]
 # the instances both trees have: (regex, the key's groups, the group of the
-# mode left out, its value): (dtype, adj, legs, shard) with the energy mode
-# off (K1, K5) and on (K1e); K2's dtype without the ABC mode; (dtype, adj,
-# legs, TB, row width, shard) of K3 and K6 without theirs
-K1_SASS = (r"stencil_step_kernelI([fd])([ht])Li(\d+)ELb([01])E(Lb([01])E)?",
-           (1, 2, 3, 4), 6, "1")
-K1E_SASS = (r"stencil_step_kernelI([fd])([ht])Li(\d+)ELb([01])E(Lb([01])E)",
-            (1, 2, 3, 4), 6, "0")
+# mode left out or None, its value): K1's march (K1 and K5), (dtype, adj,
+# legs, tile width); K1e (dtype, adj, legs), stencil_step_kernel<..., false,
+# true> before the march, stencil_energy_kernel since; K2's dtype without
+# the ABC mode; (dtype, adj, legs, TB, row width, shard) of K3 and K6
+# without theirs
+K1_SASS = (r"stencil_step_kernelI([fd])([ht])Li(\d+)ELi(\d+)EE",
+           (1, 2, 3, 4), None, None)
+K1E_SASS = (r"stencil_(?:step_kernel(?=I[fd][ht]Li\d+ELb0ELb1E)|"
+            r"energy_kernel)I([fd])([ht])Li(\d+)E", (1, 2, 3), None, None)
 K2_SASS = (r"boundary_update_kernelI([fd])(Lb([01])E)?", (1,), 3, "1")
 K3_SASS = (r"tb_sweep_kernelI([fd])([ht])Li(\d+)ELi(\d+)ELi(\d+)ELb([01])E"
            r"(Lb([01])E)?", (1, 2, 3, 4, 5, 6), 8, "1")
@@ -110,7 +122,7 @@ def build_lib(name: str, sources: dict, include: Path,
 def sass(obj: Path, pattern) -> dict:
     """{key: instruction lines} of the kernels in `obj` whose name matches
     pattern = (regex, the key's groups, the mode's group, a value): those
-    whose mode's group holds that value are left out."""
+    whose mode's group holds that value are left out (mode None: none)."""
     regex, keys, mode, skip = pattern
     cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
     txt = subprocess.run([cuobjdump, "-sass", str(obj)], capture_output=True,
@@ -118,7 +130,7 @@ def sass(obj: Path, pattern) -> dict:
     out = {}
     for block in txt.split("Function : ")[1:]:
         m = re.search(regex, block.splitlines()[0])
-        if not m or m.group(mode) == skip:
+        if not m or (mode is not None and m.group(mode) == skip):
             continue
         out[m.group(*keys)] = [
             re.sub(r"/\*[0-9a-f]{4}\*/", "", ln).split(";")[0].strip()
@@ -130,6 +142,10 @@ def sass(obj: Path, pattern) -> dict:
 def compare_sass(what, pattern, base: Path, tree: Path, each=True):
     """Prints each instance's comparison (each=False: one line for all)."""
     sb, st = sass(base, pattern), sass(tree, pattern)
+    if not sb:
+        print(f"[sass] {what}: no instance in base ({len(st)} in tree)",
+              flush=True)
+        return
     same = [k for k in sorted(sb) if sb[k] == st.get(k)]
     if each:
         for key in sorted(sb):
@@ -158,41 +174,62 @@ def fmt(t: dict) -> str:
 
 
 class Fields:
-    """Random fields at SHAPE on the card, every leg of the adjacency set;
-    K1's, K1e's and K7's grid pass's calls on them from a library."""
+    """Random fields of `shape` on the card, every leg of the adjacency set
+    (FCC: 12 legs, uint16; else 6, uint8); K1's, K1e's and K7's grid
+    pass's calls on them from a library (K1e and the grid pass at SHAPE)."""
 
-    def __init__(self, dtype):
+    def __init__(self, dtype, shape=SHAPE, fcc=True):
         g = torch.Generator(device="cuda").manual_seed(0)
-        r = lambda: torch.randn(SHAPE, generator=g, device="cuda",
-                                dtype=dtype)
+        self.r = lambda: torch.randn(shape, generator=g, device="cuda",
+                                     dtype=dtype)
+        self.shape, self.nn = shape, 12 if fcc else 6
         self.code = 0 if dtype == torch.float32 else 1
-        self.u0, self.u1, self.out, self.Lu = r(), r(), r(), r()
-        self.adj = torch.full(SHAPE, 4095, dtype=torch.uint16, device="cuda")
-        Nx, Ny, Nz = SHAPE
-        blocks = -(-(Nz - 2) // 128) * (Ny - 2) * (Nx - 2)
-        self.part = torch.zeros(2 * blocks + 2048, dtype=torch.float64,
-                                device="cuda")
+        self.u0, self.u1, self.out = self.r(), self.r(), self.r()
+        self.adj = torch.full(shape, (1 << self.nn) - 1, device="cuda",
+                              dtype=torch.uint16 if fcc else torch.uint8)
         self.stream = torch.cuda.current_stream().cuda_stream
 
-    def k1(self, lib):
+    def energy(self):
+        """Lu and K7's scratch, made at the first K1e or grid-pass call."""
+        if not hasattr(self, "Lu"):
+            Nx, Ny, Nz = self.shape
+            blocks = -(-(Nz - 2) // 128) * (Ny - 2) * (Nx - 2)
+            self.Lu = self.r()
+            self.part = torch.zeros(2 * blocks + 2048, dtype=torch.float64,
+                                    device="cuda")
+        return self.Lu, self.part
+
+    def k1(self, lib, out=None):
+        """K1 of `lib` into `out` (default self.out); a library built with
+        K1's march takes the tiles `plan_k1` gives."""
+        from pffdtd_tpu_torch.kernels.stencil import plan_k1
+
         p = lambda t: t.data_ptr()
-        return lambda: _build.check(lib.pf_stencil_step(
-            self.code, 12, p(self.u0), p(self.u1), p(self.adj), p(self.out),
-            *SHAPE, 1, 0.25, 3.0, 0.57, 1.14, 1.71, self.stream), "K1")
+        Nx, Ny, Nz = self.shape
+        tiles = []
+        if lib.march:
+            geo = plan_k1(Nx - 2, Ny, Nz, self.u1.element_size())
+            tiles = [geo.By, geo.Bz, geo.Cx]
+        args = (self.code, self.nn, p(self.u0), p(self.u1), p(self.adj),
+                p(self.out if out is None else out), *self.shape, 1, *tiles,
+                0.25, 3.0, 0.57, 1.14, 1.71, self.stream)
+        return lambda: _build.check(lib.pf_stencil_step(*args), "K1")
 
     def k1e(self, lib):
         p = lambda t: t.data_ptr()
+        Lu, part = self.energy()
         return lambda: _build.check(lib.pf_stencil_energy_step(
             self.code, 12, p(self.u0), p(self.u1), p(self.adj), p(self.out),
-            p(self.Lu), p(self.part), self.part.numel(), *SHAPE, 1, 0.25,
-            3.0, 0.57, 1.14, 1.71, 0.1, 1.3, self.stream), "K1e")
+            p(Lu), p(part), part.numel(), *self.shape, 1, 0.25, 3.0, 0.57,
+            1.14, 1.71, 0.1, 1.3, self.stream), "K1e")
 
     def grid_pass(self, lib):
         p = lambda t: t.data_ptr()
+        Lu, part = self.energy()
         return lambda: _build.check(lib.pf_energy_grid(
-            self.code, 12, p(self.u0), p(self.u1), p(self.adj), p(self.Lu),
-            p(self.part), self.part.numel(), *SHAPE, 1, 0.1, 1.3,
-            self.stream), "K7 grid pass")
+            self.code, 12, p(self.u0), p(self.u1), p(self.adj), p(Lu),
+            p(part), part.numel(), *self.shape, 1, 0.1, 1.3, self.stream),
+            "K7 grid pass")
 
 
 def k1_sources(d: Path) -> dict:
@@ -202,33 +239,63 @@ def k1_sources(d: Path) -> dict:
             if (d / f).exists()}
 
 
+def k1_lib(name: str, d: Path):
+    """d's K1 sources built into a library; `march` tells whether its K1
+    takes tiles (else it is called with the signature before K1's
+    march)."""
+    src = k1_sources(d)
+    march = "int Cx" in src["stencil.cu"]
+    lib = build_lib(name, src, d, None if march else
+                    {**_build.SIGNATURES, "pf_stencil_step": K1_BASE_ARGS})
+    lib.march = march
+    return lib
+
+
 _K1_LIBS: dict = {}
 
 
-def _probe_stencil(base: Path, name: str, pattern, call):
-    """K1 or K1e: both trees' stencil.cu (with energy.cu), built once."""
+def _k1_libs(base: Path) -> dict:
+    """Both trees' stencil.cu (with energy.cu), built once."""
     if not _K1_LIBS:
-        _K1_LIBS["base"] = build_lib("k1_base", k1_sources(base), base)
-        _K1_LIBS["tree"] = build_lib("k1_tree", k1_sources(_build.CSRC),
-                                     _build.CSRC)
-    libs = _K1_LIBS
-    compare_sass(f"{name} (dtype, adj, legs, shard)", pattern,
+        _K1_LIBS["base"] = k1_lib("k1_base", base)
+        _K1_LIBS["tree"] = k1_lib("k1_tree", _build.CSRC)
+    return _K1_LIBS
+
+
+def probe_k1(base: Path):
+    libs = _k1_libs(base)
+    compare_sass("K1/K5 (dtype, adj, legs, tile width)", K1_SASS,
+                 PROBE / "k1_base" / "stencil.o",
+                 PROBE / "k1_tree" / "stencil.o")
+    for shape, fcc in K1_SHAPES:
+        for dt in (torch.float32, torch.float64):
+            f = Fields(dt, shape, fcc)
+            outs = {k: torch.empty_like(f.u0) for k in libs}
+            for k, lib in libs.items():
+                f.k1(lib, outs[k])()
+            torch.cuda.synchronize()
+            inner = (slice(1, -1),) * 3
+            same = torch.equal(outs["base"][inner], outs["tree"][inner])
+            del outs
+            calls = {k: f.k1(lib) for k, lib in libs.items()}
+            print(f"[base] K1 {dt} {'FCC' if fcc else 'Cartesian'} "
+                  f"{shape}: bitwise equal {same}; "
+                  + fmt(turns(calls, IN_TURNS)), flush=True)
+            del f, calls
+            torch.cuda.empty_cache()
+
+
+def probe_k1e(base: Path):
+    libs = _k1_libs(base)
+    compare_sass("K1e (dtype, adj, legs)", K1E_SASS,
                  PROBE / "k1_base" / "stencil.o",
                  PROBE / "k1_tree" / "stencil.o")
     for dt in (torch.float32, torch.float64):
         f = Fields(dt)
-        calls = {k: call(f, lib) for k, lib in libs.items()}
-        print(f"[base] {name} {dt} FCC {SHAPE}: "
+        calls = {k: f.k1e(lib) for k, lib in libs.items()}
+        print(f"[base] K1e {dt} FCC {SHAPE}: "
               + fmt(turns(calls, IN_TURNS)), flush=True)
         del f
-
-
-def probe_k1(base: Path):
-    _probe_stencil(base, "K1/K5", K1_SASS, Fields.k1)
-
-
-def probe_k1e(base: Path):
-    _probe_stencil(base, "K1e", K1E_SASS, Fields.k1e)
 
 
 def _headline_engine(dtype, open_top=False, **kw):

@@ -1,8 +1,9 @@
 """K1, the fused stencil step, K5, its shard mode, and their plain versions.
 
 `stencil_step` launches the CUDA kernel of `csrc/stencil.cu` for tensors on
-the card, and runs `stencil_step_plain` for tensors on the CPU.  Both compute,
-on the interior (1..N-2 on every axis) of `out`, one step of
+the card, on the tiles and chunks `plan_k1` gives its shape and dtype, and
+runs `stencil_step_plain` for tensors on the CPU.  Both compute, on the
+interior (1..N-2 on every axis) of `out`, one step of
 `pffdtd_tpu/engine/jax_engine.py` `_step_core` with `rigid="dense"` minus the
 lossy ODE and the sources (K2 and the engine do those):
 
@@ -13,12 +14,12 @@ lossy ODE and the sources (K2 and the engine do those):
 The halo layers of `out` are left as they were: every step mirrors them
 afresh from interior data, so they are never read.
 
-`stencil_step_shard` (K5, the same source in shard mode) and
+`stencil_step_shard` (K5, the same kernel on a slab's rows) and
 `stencil_step_shard_plain` compute the same step on the owned rows of one
 x-slab (`engine.data.SlabSpec`), the counterpart of
 `pffdtd_tpu/engine/pallas_stencil.py` `build_fused_stencil_sharded`.
 
-`stencil_energy_step` (K1e, the same source in energy mode) runs the step
+`stencil_energy_step` (K1e, the 1-D kernel of the same source) runs the step
 and, in the same launch, K7's grid pass (`kernels.energy`): L u^n over L
 u^{n-1} in place and H[n]'s grid sums into K7's scratch, the bits that
 `energy_grid_pass` writes.  Its plain version, `stencil_energy_step_plain`,
@@ -27,7 +28,10 @@ is `energy_grid_pass_plain` followed by `stencil_step_plain`.
 
 from __future__ import annotations
 
+import functools
 import itertools
+import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -35,6 +39,67 @@ import torch
 from pffdtd_tpu_torch.kernels import _build
 from pffdtd_tpu_torch.utils import as_dtype
 from pffdtd_tpu_torch.voxelizer.vox import CART_VECTORS, FCC_VECTORS
+
+
+# K1's march (csrc/stencil.cu): the constants the planner shares with it
+MARCH_THREADS = 256       # kMarchThreads
+MARCH_RING = 5            # kRing: planes of u^n a block holds
+MARCH_MAX_ROWS = 4        # kMaxRows: tile rows a thread computes
+MARCH_WIDTHS = (32, 64)   # the tile's z extents the kernel is built for
+MARCH_CHUNK = 12          # rows a block marches over, where there are
+GRID_YZ_LIMIT = 65535     # blocks along a launch's y and z
+
+
+@dataclass(frozen=True)
+class K1Geometry:
+    """One K1 (or K5) launch: tiles of By x Bz interior points of (y, z),
+    chunks of Cx rows, `grid` = (z tiles, y tiles, chunks) blocks of
+    MARCH_THREADS threads, `smem` bytes of shared memory a block."""
+
+    By: int
+    Bz: int
+    Cx: int
+    grid: tuple
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return math.prod(self.grid)
+
+
+@functools.lru_cache(maxsize=64)
+def plan_k1(rows: int, Ny: int, Nz: int, itemsize: int) -> K1Geometry:
+    """K1's tiles and chunks for `rows` interior rows of an (Ny, Nz) plane
+    at `itemsize` bytes a value, from those alone.
+
+    Every thread computes MARCH_MAX_ROWS rows of its column (fewer where
+    the plane has fewer rows), in fp32 and fp64 alike, on tiles 64 points
+    wide in z (32 where the interior's z fits in 32), and every block
+    marches MARCH_CHUNK rows (the extent evened out over the chunks).  Of
+    the tiles and chunks timed on the H100 at the 1628 x 635 x 1048 FCC
+    grid, the 1.049 Gvox Cartesian box and the 125 Mvox headline, in fp32
+    and fp64 (PERF.md, PR 20), these are within 3% of the fastest (5% on
+    the headline in fp64, where chunks of 6 rows led): two rows a thread
+    took 12-21% longer than four, 32 x 32 tiles (rows of 128 B in fp32)
+    8-24% longer than 16 x 64, tiles 128 or 256 wide up to 17% longer in
+    fp64 and at most 3% shorter; chunks of 6 to 20 rows lie within 5% of
+    each other, chunks of 32 to 63 rows took 3-16% longer.
+    On the cell's 1046 interior z the last of 17 tiles idles 42 of 1,088
+    lanes (3.9%, where the 1-D design idled 9.2%)."""
+    if rows < 1 or min(Ny, Nz) < 5 or itemsize not in (4, 8):
+        raise ValueError(f"rows={rows}, Ny={Ny}, Nz={Nz}, itemsize="
+                         f"{itemsize}: no K1 launch")
+    ny, nz = Ny - 2, Nz - 2
+    Bz = MARCH_WIDTHS[0] if nz <= MARCH_WIDTHS[0] else MARCH_WIDTHS[1]
+    teams = MARCH_THREADS // Bz
+    By = teams * min(MARCH_MAX_ROWS, -(-ny // teams))
+    Cx = -(-rows // -(-rows // MARCH_CHUNK))
+    grid = (-(-nz // Bz), -(-ny // By), -(-rows // Cx))
+    if max(grid[1:]) > GRID_YZ_LIMIT:
+        raise ValueError(f"rows={rows}, Ny={Ny}: {grid} blocks exceed the "
+                         "launch's limits")
+    return K1Geometry(By, Bz, Cx, grid,
+                      MARCH_RING * (By + 2) * (Bz + 2) * itemsize)
 
 
 def abc_regions(grid):
@@ -101,17 +166,21 @@ def stencil_step(u0, u1, adj, out, grid, sc):
         raise ValueError(f"device {u1.device}: cpu or cuda only")
     lib = _build.library()
     Nx, Ny, Nz = grid.shape
+    geo = plan_k1(Nx - 2, Ny, Nz, u1.element_size())
     with _build.on_device(u1.device):
         rc = lib.pf_stencil_step(
             *_launch_args(u0, u1, adj, out, nn), Nx, Ny, Nz,
-            int(grid.folded), sc.a2, sc.sl2, sc.l * 1, sc.l * 2, sc.l * 3,
+            int(grid.folded), geo.By, geo.Bz, geo.Cx, sc.a2, sc.sl2,
+            sc.l * 1, sc.l * 2, sc.l * 3,
             torch.cuda.current_stream(u1.device).cuda_stream)
     _build.check(rc, "stencil_step")
     stencil_step.launches += 1
+    stencil_step.geometry = geo
     return out
 
 
 stencil_step.launches = 0
+stencil_step.geometry = None   # the K1Geometry of the last launch
 
 
 def stencil_energy_step(u0, u1, adj, out, Lu, part, grid, sc, es):
@@ -188,18 +257,21 @@ def stencil_step_shard(u0, u1, adj, out, slab, sc):
         raise ValueError(f"device {u1.device}: cpu or cuda only")
     lib = _build.library()
     g = slab.grid
+    geo = plan_k1(slab.S, g.Ny, g.Nz, u1.element_size())
     with _build.on_device(u1.device):
         rc = lib.pf_stencil_step_shard(
             *_launch_args(u0, u1, adj, out, nn), g.Nx, g.Ny, g.Nz,
-            int(g.folded), slab.G, slab.S, slab.xo, sc.a2, sc.sl2, sc.l * 1,
-            sc.l * 2, sc.l * 3,
+            int(g.folded), slab.G, slab.S, slab.xo, geo.By, geo.Bz, geo.Cx,
+            sc.a2, sc.sl2, sc.l * 1, sc.l * 2, sc.l * 3,
             torch.cuda.current_stream(u1.device).cuda_stream)
     _build.check(rc, "stencil_step_shard")
     stencil_step_shard.launches += 1
+    stencil_step_shard.geometry = geo
     return out
 
 
 stencil_step_shard.launches = 0
+stencil_step_shard.geometry = None   # the K1Geometry of the last launch
 
 
 def stencil_step_shard_plain(u0, u1, adj, out, slab, sc):

@@ -28,6 +28,12 @@ grid pass, K1, K2 and K7's boundary pass, and its resume bitwise equal to
 the uninterrupted run; K8 (the modal recurrence) <= 1e-12 of its numpy loop
 and of its design's plain version (`modal_split_plain`), its loop modes
 bitwise equal to the numpy loop.
+K1 and K5 bitwise equal to their plain versions on random fields and a
+random adjacency (air and masked points) of ragged grids: Nx-2, Ny-2 and
+Nz-2 no multiples of the tiles and chunks (planned, and forced to both
+tile widths and to 1-3 rows a thread), every ABC face, edge and corner,
+the folded high-y ghost, fp32 and fp64, Cartesian and FCC; the slabs of a
+four-way split bitwise the whole grid's rows, and no halo written.
 K2's and K3/K6's ABC modes (lossy nodes on an ABC layer, an open-top box)
 bitwise equal to their plain versions (K3 at TB = 2, 3, 8, K6 at 2 and 3
 on both slabs of a D = 2 split), the open-top box's kernel path within
@@ -58,6 +64,9 @@ import torch
 
 from pffdtd_tpu_torch import spans
 from pffdtd_tpu_torch.engine.torch_engine import BN_ITERS, TorchEngine
+from pffdtd_tpu_torch.engine.coeffs import SchemeCoeffs
+from pffdtd_tpu_torch.engine.data import GridSpec, SlabSpec
+from pffdtd_tpu_torch.kernels import stencil as kstencil
 from pffdtd_tpu_torch.kernels import tb as ktb
 from pffdtd_tpu_torch.io.simdata import MMb
 from pffdtd_tpu_torch.kernels.boundary import (boundary_update,
@@ -442,6 +451,72 @@ def test_stencil_step_shard_matches_plain(cuda, name, dtype):
         assert torch.isfinite(a[own]).all()
         assert _rel(a[own], b[own]) <= TOL[dtype]
         assert torch.isnan(a[:sl.G]).all() and torch.isnan(a[-sl.G:]).all()
+
+
+# ragged grids (Nx, Ny, Nz): the minimum; two y tiles and three z tiles of
+# 32, each with a part-filled last one; fewer y rows than a block's teams;
+# a long z and rows past a chunk of 64
+RAGGED = [(5, 5, 5), (13, 45, 71), (9, 6, 133), (71, 11, 200)]
+# tiles forced on the launch: (By, Bz, Cx), 1-3 rows a thread, both widths
+FORCED = {"planned": None, "64-wide": (12, 64, 3), "32-wide": (8, 32, 2)}
+
+
+@pytest.mark.parametrize("geometry", list(FORCED))
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("kind", ["cart", "fcc", "fcc-folded"])
+@pytest.mark.parametrize("shape", RAGGED)
+def test_k1_k5_bitwise_on_ragged_grids(cuda, monkeypatch, shape, kind,
+                                       dtype, geometry):
+    if FORCED[geometry] is not None:
+        By, Bz, Cx = FORCED[geometry]
+        monkeypatch.setattr(kstencil, "plan_k1", lambda *a: kstencil.
+                            K1Geometry(By, Bz, Cx, (), 0))
+    fcc = kind != "cart"
+    g = GridSpec(*shape, 2 if kind == "fcc-folded" else int(fcc))
+    sc = SchemeCoeffs.make(0.57 if fcc else 0.55, 0.33, fcc)
+    rng = np.random.default_rng(sum(shape))
+    nn = 12 if fcc else 6
+    # air (every leg) at two points in three, random legs elsewhere
+    bits = rng.integers(0, 1 << nn, shape)
+    bits[rng.random(shape) < 0.67] = (1 << nn) - 1
+    adj = torch.from_numpy(bits.astype(np.int32)).to(
+        torch.uint16 if fcc else torch.uint8).to(cuda)
+    t = lambda: torch.from_numpy(rng.standard_normal(shape).astype(
+        dtype)).to(cuda)
+    u0, u1 = t(), t()
+    a = torch.full_like(u0, float("nan"))
+    b = a.clone()
+    n = stencil_step.launches
+    stencil_step(u0, u1, adj, a, g, sc)
+    stencil_step_plain(u0, u1, adj, b, g, sc)
+    torch.cuda.synchronize()
+    assert stencil_step.launches == n + 1
+    inner = (slice(1, -1),) * 3
+    assert torch.isfinite(a[inner]).all()
+    assert torch.equal(a[inner], b[inner])
+    halo = torch.ones(shape, dtype=torch.bool, device=cuda)
+    halo[inner] = False
+    assert torch.isnan(a[halo]).all()
+    # K5 on the slabs of a four-way split (a slab of one or two rows on the
+    # short grids), each bitwise its plain version and the whole grid's rows
+    cuts = np.linspace(1, g.Nx - 1, 5).astype(int)
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        if hi <= lo:
+            continue
+        sl = SlabSpec(g, int(hi - lo), 1, int(lo - 1))
+        rows = slice(lo - 1, hi + 1)
+        ka = torch.full_like(u0[rows], float("nan"))
+        kb = ka.clone()
+        args = (u0[rows].contiguous(), u1[rows].contiguous(),
+                adj[rows].contiguous())
+        n = stencil_step_shard.launches
+        stencil_step_shard(*args, ka, sl, sc)
+        stencil_step_shard_plain(*args, kb, sl, sc)
+        torch.cuda.synchronize()
+        assert stencil_step_shard.launches == n + 1
+        assert torch.equal(ka[1:-1, 1:-1, 1:-1], kb[1:-1, 1:-1, 1:-1])
+        assert torch.equal(ka[1:-1, 1:-1, 1:-1], a[lo:hi, 1:-1, 1:-1])
+        assert torch.isnan(ka[0]).all() and torch.isnan(ka[-1]).all()
 
 
 @pytest.mark.parametrize("chunk", [None, 7])

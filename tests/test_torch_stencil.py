@@ -8,6 +8,12 @@ by a precomputed 1/(1 + l*Q) where the port divides, and XLA may fuse the
 leapfrog's products, so they differ by a rounding or two: measured max
 error 1.0e-7 of max |unew| (cart), 7.3e-8 (FCC), 7.9e-8 (folded FCC),
 bound 1e-6.  The folded case checks the mirror of the high y layer.
+
+`plan_k1`, the tile geometry of K1's march, on shapes from the 5 x 5 x 5
+minimum to the 1628 x 635 x 1048 FCC cell, the 1.049 Gvox Cartesian box and
+thin slabs, in fp32 and fp64: its tiles and chunks, walked as the kernel
+walks them, cover every interior point once, and its launch fits the
+card's limits.
 """
 
 import numpy as np
@@ -20,7 +26,9 @@ from pffdtd_tpu.engine.jax_engine import EngineData as JaxEngineData
 from pffdtd_tpu.engine.pallas_stencil import build_fused_stencil
 
 from pffdtd_tpu_torch.engine.data import EngineData
-from pffdtd_tpu_torch.kernels.stencil import (abc_regions, stencil_step,
+from pffdtd_tpu_torch.kernels import stencil as kstencil
+from pffdtd_tpu_torch.kernels.stencil import (abc_regions, plan_k1,
+                                              stencil_step,
                                               stencil_step_plain)
 from pffdtd_tpu_torch.scene import fold_fcc_sim, synthetic_box_sim
 
@@ -107,3 +115,86 @@ def test_wrapper_runs_plain_on_cpu_and_validates():
         stencil_step(u0, u1, adj.to(torch.uint8), a, d.grid, d.sc)
     with pytest.raises(TypeError):
         stencil_step(u0.float(), u1, adj, a, d.grid, d.sc)
+
+
+# (rows, Ny, Nz): the minimum grid, the FCC cell (1628 x 635 x 1048), the
+# Cartesian 1.049 Gvox box (1288 x 1008 x 808), a slab of four of the
+# headline, a one-row slab of the cell, a thin y and a thin z
+PLAN_SHAPES = [(3, 5, 5), (1626, 635, 1048), (1286, 1008, 808),
+               (198, 310, 510), (1, 635, 1048), (40, 6, 1048),
+               (790, 310, 7)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_plan_k1_covers_the_interior_once(shape, itemsize):
+    rows, Ny, Nz = shape
+    g = plan_k1(rows, Ny, Nz, itemsize)
+    teams = kstencil.MARCH_THREADS // g.Bz
+    assert g.Bz in kstencil.MARCH_WIDTHS
+    assert g.By % teams == 0
+    assert 1 <= g.By // teams <= kstencil.MARCH_MAX_ROWS
+    assert 1 <= g.Cx <= kstencil.MARCH_CHUNK
+    # each axis walked as the kernel walks it: z = oz0 + lane, y = oy0 +
+    # team + j * teams, x in [X0, X0 + Cx), each kept inside the interior
+    nz, ny = Nz - 2, Ny - 2
+    hits = {"z": np.zeros(Nz, int), "y": np.zeros(Ny, int),
+            "x": np.zeros(rows + 2, int)}
+    for t in range(g.grid[0]):
+        z = 1 + t * g.Bz + np.arange(g.Bz)
+        np.add.at(hits["z"], z[z <= nz], 1)
+    for t in range(g.grid[1]):
+        y = (1 + t * g.By + np.arange(teams)[:, None]
+             + teams * np.arange(g.By // teams)[None, :]).ravel()
+        np.add.at(hits["y"], y[y <= ny], 1)
+    for c in range(g.grid[2]):
+        x0 = 1 + c * g.Cx
+        hits["x"][x0:min(x0 + g.Cx, rows + 1)] += 1
+    for axis, h in hits.items():
+        assert (h[1:-1] == 1).all() and h[0] == 0 and h[-1] == 0, axis
+    # the launch's limits: blocks along y and z, shared memory (the
+    # launcher asks for no more than the default 48 KB, under the H100's
+    # 227 KB), and the ring cells a thread loads a plane (kCells: 5 for
+    # either width)
+    assert g.grid == (-(-nz // g.Bz), -(-ny // g.By), -(-rows // g.Cx))
+    assert g.grid[0] < 2**31 and max(g.grid[1:]) <= 65535
+    assert g.smem == (kstencil.MARCH_RING * (g.By + 2) * (g.Bz + 2)
+                      * itemsize) <= 48 * 1024
+    assert (g.By + 2) * (g.Bz + 2) <= 5 * kstencil.MARCH_THREADS
+    # a grid of 10^8 points or more fills the H100's 132 SMs, four blocks
+    # each, for several waves
+    if rows * ny * nz >= 10**8:
+        assert g.blocks >= 8 * 132 * 4
+
+
+def test_probe_tells_the_march_from_the_1d_kernels():
+    """kernels.probe calls a base built before K1's march with the entry
+    less its tiles, compares K1e's SASS across the rename (the 1-D kernel's
+    energy instance, `stencil_energy_kernel` since) and K1's between
+    marches only."""
+    import ctypes
+    import re
+
+    from pffdtd_tpu_torch.kernels import _build, probe
+
+    i = ctypes.c_int
+    new = _build.SIGNATURES["pf_stencil_step"]
+    assert new[10:13] == [i] * 3
+    assert probe.K1_BASE_ARGS == new[:10] + new[13:]
+    ns = "_ZN43_GLOBAL__N__901f37f3_10_stencil_cu_d2e80092"
+    before = {(e, s): f"{ns}19stencil_step_kernelIftLi12ELb{s}ELb{e}EEvPKT_"
+              for e in "01" for s in "01"}
+    energy = f"{ns}21stencil_energy_kernelIdhLi6EEEvPKT_S3_"
+    march = f"{ns}19stencil_step_kernelIftLi12ELi64EEEvNS_8StepArgsIT_T0_EE"
+
+    def key(pattern, name):
+        m = re.search(pattern[0], name)
+        return m.group(*pattern[1]) if m else None
+
+    assert key(probe.K1E_SASS, before[("1", "0")]) == ("f", "t", "12")
+    assert key(probe.K1E_SASS, energy) == ("d", "h", "6")
+    for e, s in (("0", "0"), ("0", "1")):
+        assert key(probe.K1E_SASS, before[(e, s)]) is None
+        assert key(probe.K1_SASS, before[(e, s)]) is None
+    assert key(probe.K1_SASS, march) == ("f", "t", "12", "64")
+    assert key(probe.K1_SASS, energy) is None
