@@ -15,7 +15,11 @@ Scenes (`SCENES`), each built once unrotated:
   shoebox concert hall;
 - `box_1e9`: setup_1e9's 32 x 25 x 20 m box, Cartesian at h = 0.025
   (1288 x 1008 x 808 = 1.049 Gvox), lossy with `DEF11`: the step route
-  only.
+  only;
+- `cart_cell`: the room of the benchmark's Cartesian cell
+  (`rirbench/configs/cart_lossy_box.json`), a 30.0 x 23.4 x 19.2 m box at
+  h = 343.2 / (1,900 x 7.75) m (1296 x 1012 x 832 = 1.0912e9 points),
+  lossy with `DEF11`: the step route only.
 For each axis k on z, the grid is permuted as `rotate_sim` permutes it
 (`scene.tr_for`: the longer of the other two axes on x), FCC grids are then
 folded, and the nodes sorted.  Printed, one `ORIENT {json}` line a
@@ -69,6 +73,7 @@ REPS, WINDOWS, RUNS = 20, 3, 3
 HEADLINE = (36.0, 28.0, 23.0, 0.046)
 SHOEBOX = (49.0, 19.0, 18.0, 0.046)
 BOX_1E9 = (32.0, 25.0, 20.0, 0.025)
+CART_CELL = (30.0, 23.4, 19.2, 343.2 / (1900.0 * 7.75))
 # chip_smoke.py phase 7's sloped hall (Lx, Ly, ceiling at y = 0, at y =
 # Ly, h), its receivers' offsets from the source, its materials' octave
 # absorptions
@@ -76,7 +81,7 @@ HALL = (36.0, 28.0, 17.0, 23.0, 0.046)
 HALL_RXYZ = np.array([[1.0, -0.8, 0.6], [-0.9, 1.0, -0.6]])
 WALLS_SABS = np.linspace(0.05, 0.30, 11)
 FLOOR_SABS = np.linspace(0.02, 0.10, 11)
-STEP_ONLY = ("box_1e9",)
+STEP_ONLY = ("box_1e9", "cart_cell")
 
 
 def box_scene(dims, nt, fcc):
@@ -110,6 +115,7 @@ SCENES = {
     "hall": hall_scene,
     "shoebox": lambda nt: box_scene(SHOEBOX, nt, False),
     "box_1e9": lambda nt: box_scene(BOX_1E9, nt, False),
+    "cart_cell": lambda nt: box_scene(CART_CELL, nt, False),
 }
 
 

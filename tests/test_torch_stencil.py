@@ -119,10 +119,11 @@ def test_wrapper_runs_plain_on_cpu_and_validates():
 
 # (rows, Ny, Nz): the minimum grid, the FCC cell (1628 x 635 x 1048), the
 # Cartesian 1.049 Gvox box (1288 x 1008 x 808), a slab of four of the
-# headline, a one-row slab of the cell, a thin y and a thin z
+# headline, a one-row slab of the cell, a thin y and a thin z, and the
+# Cartesian cell as "auto" lays it out (1296 x 832 x 1012)
 PLAN_SHAPES = [(3, 5, 5), (1626, 635, 1048), (1286, 1008, 808),
                (198, 310, 510), (1, 635, 1048), (40, 6, 1048),
-               (790, 310, 7)]
+               (790, 310, 7), (1294, 832, 1012)]
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
