@@ -142,7 +142,7 @@ class TorchEngine:
         self.Nt = d.Nt
         self.use_kernels = use_kernels
         self.backend, self.TB = pick_route(backend, tb)
-        self.state = None     # a run's state, from its start
+        self.state = None     # a run's state, from its start to the next's
         self._bn_ms = None    # bn_ms_per_step's value, once measured
         if energy_on and self.TB is not None:
             raise ValueError(f"energy_on: the step route only (backend "
@@ -354,10 +354,13 @@ class TorchEngine:
         ran.  Each call is a numbered run (`spans.numbered_run`) with the
         spans run.signals (the signals' upload), run.state (the receiver
         rows, the energy carry, the state and the TB route's spare
-        buffers: what a run allocates on the device, the new state beside
-        the last run's, which it then frees), run.checkpoint (each
+        buffers: what a run allocates on the device), run.checkpoint (each
         save) and run.receivers (the rows' download and scaling), none of
-        them inside the step loop."""
+        them inside the step loop.  The last run's state is dropped before
+        the first of them, so a run holds one state, never two (a caller
+        that keeps its own reference to an old `self.state` keeps that
+        memory)."""
+        self.state = None     # the last run's fields go before new ones
         d = self.data
         g = d.grid
         npts = g.Nx * g.Ny * g.Nz

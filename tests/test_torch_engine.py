@@ -8,10 +8,13 @@
   (test_pallas_stencil.py's bar), Cartesian and folded FCC;
 - one step from a random state carried across by convert.state_from_jax_xla,
   vs the JAX XLA step, fp64, to 1e-12;
-- the CLI `sim` writes a sim_outs.h5 equal (1e-12) to the JAX CLI's.
+- the CLI `sim` writes a sim_outs.h5 equal (1e-12) to the JAX CLI's;
+- back-to-back runs of one engine: the last run's state is dropped before
+  the next one allocates, and the results are bitwise a fresh engine's.
 """
 
 import shutil
+import weakref
 
 import numpy as np
 import pytest
@@ -194,3 +197,45 @@ def test_cli_sim_matches_jax_cli(tmp_path):
     ua, ub = read_outputs(a), read_outputs(b)
     assert ua.shape == ub.shape == (sim.comms.Nr, 24)
     assert _rel(ub, ua) < 1e-12
+
+
+@pytest.mark.parametrize("route", ["step", "tb", "energy"])
+def test_back_to_back_runs_hold_one_state(route):
+    """A second run of one engine allocates its state only once the first
+    run's five tensors are gone; each run leaves its final state on
+    `eng.state`; both runs give receivers and a final state bitwise those
+    of a fresh engine's single run (fp64, folded FCC, 31 steps: the tb
+    route runs its tail steps too)."""
+    sim = sort_sim(fold_fcc_sim(synthetic_box_sim(
+        2.2, 1.8, 1.5, h=0.12, Nt=31, fcc=True, lossy=True,
+        insig_type="hann10", diff_source=False)))
+    kw = dict(**_kw(sim), dtype=np.float64, device="cpu",
+              backend="tb" if route == "tb" else "step", tb=3,
+              energy_on=route == "energy")
+    eng = TorchEngine(**kw)
+    held, alive = [], []    # weak references to each run's tensors
+    init = eng.init_state
+
+    def init_state():
+        if held:    # the last run's, when the next one allocates
+            alive.append(sum(r() is not None for r in held))
+        state = init()
+        held[:] = [weakref.ref(t) for t in state]
+        return state
+
+    eng.init_state = init_state
+    runs = []
+    for _ in range(2):
+        u = eng.run(verbose=False)
+        assert eng.state is not None and len(eng.state) == 5
+        held += [weakref.ref(t) for t in eng.state]     # the final state
+        runs.append((u, [t.clone() for t in eng.state]))
+    assert alive == [0]
+    fresh = TorchEngine(**kw)
+    u_ref = fresh.run(verbose=False)
+    for u, state in runs:
+        assert np.array_equal(u, u_ref)
+        for a, b in zip(state, fresh.state):
+            assert torch.equal(a, b)
+    if route == "energy":
+        assert np.array_equal(eng.H_tot, fresh.H_tot)
