@@ -30,19 +30,17 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    magnitude.  K3, one
    sweep of every TB = 2..8 (fields, vh/gh, taps): <= 1e-5 of the largest
    magnitude of each output, each timed (ms per sweep and per step: the
-   TB scan; TB = 2 and 3 over 20 sweeps, the deeper ones over 3).  K7's
-   grid and boundary passes (the energy terms), each timed: L u^n <= 1e-6;
-   H, dE_lost and dE_in no further from their fp64 value (the fp64 plain
-   passes on the same inputs with the fp32 run's constants) than the fp32
-   plain passes' (K7 sums in fp64 and must not be less accurate than what
-   it replaces).  K1e, K1's energy mode (the step and K7's grid pass in
-   one launch): u^{n+1} and L u^n bitwise equal to its plain version, its
-   partial sums within 1e-12 of K7's grid pass's (bitwise equality
-   printed), H after K7's boundary pass as K7's (the one energy that reads
-   K1e's sums); timed in turns with K1 and K7's grid pass on the same
-   inputs.  Then fp64 on the small
-   scenes of phase 3 (K3 at TB = 2, 3 and 8; K7 and K1e, every output),
-   <= 1e-12.  Kernels and plain versions are timed with CUDA events.
+   TB scan; TB = 2 and 3 over 20 sweeps, the deeper ones over 3).  K1e,
+   K1's energy mode (the step and K7's grid half in one launch), then K7's
+   boundary pass (the energy terms), against their plain versions:
+   u^{n+1} and L u^n bitwise equal; H, dE_lost and dE_in no further from
+   their fp64 value (the fp64 plain versions on the same inputs with the
+   fp32 run's constants) than the fp32 plain versions' (K1e and K7 sum in
+   fp64 and must not be less accurate than what they replace); K1e timed
+   in turns with K1 on the same inputs, K7's boundary pass timed.  Then
+   fp64 on the small scenes of phase 3 (K3 at TB = 2, 3 and 8; K1e and K7,
+   every output), <= 1e-12.  Kernels and plain versions are timed with
+   CUDA events.
    K5 and K6, the shard modes (in phase 5, on the engines it builds): K5 vs
    its plain version on the first, a middle and the last slab of the D = 4
    split, <= 1e-6; K6 with TB = 2 and 3 on the same slabs (fields, owned
@@ -111,21 +109,18 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
    engine's peak device memory.  Each engine is freed before the next.
 6. Energy accounting, checkpoint/resume, the per-chunk hook and the modal
    filter: (a) the small fp64 scenes with energy on (K1e + K2 + K7's
-   boundary pass a step, launch counts checked: no K1 and no K7 grid
-   pass): balance < 1e-10, E_lost[-1] > 0, H_tot, E_lost and E_in <=
-   1e-12 of their largest magnitude against the plain path on the card,
-   receivers bitwise equal to the energy-off run, and receivers, energies
-   and final fields bitwise equal to the two-pass route (K7's grid pass,
-   K1, K2, K7's boundary pass: the route before K1e, composed here from
-   the wrappers); (b) the headline scene with energy on, 128 steps in fp32
-   (receivers bitwise equal to phase 4's step route, 128 K1e, 128 K2 and
-   128 K7 launches) and in fp64 (balance < 1e-9, the JAX package's bar for
-   a real room), each with its peak device memory, then three runs of it
-   and three of the two-pass route in turns: every run bitwise equal,
-   launches checked per run, MVPS and ms a step, best of 3, beside the
-   step route's (fp64: its own run); the whole fp32 energy step's bound
-   (each input read and each output written once) beside both routes'
-   ms a step; then 384 fp64 steps
+   boundary pass a step, launch counts checked: no K1): balance < 1e-10,
+   E_lost[-1] > 0, H_tot, E_lost and E_in <= 1e-12 of their largest
+   magnitude against the plain path on the card, receivers bitwise equal
+   to the energy-off run; (b) the headline scene with energy on, 128 steps
+   in fp32 (receivers bitwise equal to phase 4's step route, 128 K1e, 128
+   K2 and 128 K7 launches) and in fp64 (balance < 1e-9, the JAX package's
+   bar for a real room), each with its peak device memory, then three more
+   runs of it: every run bitwise equal to the first (receivers, energies,
+   final fields), launches checked per run, MVPS and ms a step, best of 3,
+   beside the step route's (fp64: its own run); the whole fp32 energy
+   step's bound (each input read and each output written once) beside the
+   route's ms a step; then 384 fp64 steps
    (the source sits 11.5 m from the floor and the ceiling, about 250 steps
    of one h): balance < 1e-9, and E_lost grows from step 240 to 384 by
    more than its value at step 240; a checkpoint of the
@@ -210,7 +205,7 @@ Phases, each fatal on failure (no CPU fallback; exit code != 0):
 10. orient="auto" (`scene.rotate_sim`'s default, the port's rule
    `scene.orientation_scores`): on the 49 x 19 x 18 m Cartesian shoebox
    hall (h = 0.046, 1074 x 422 x 400 = 181.3 Mvox, lossy with DEF11) and
-   the headline box, both `kernels.orient_probe`'s scenes, the rule's
+   the headline box, both `probes.orient`'s scenes, the rule's
    scores, its choice and the lane fill of each axis on z are printed.
    The shoebox (and the headline, where "auto" is not "descending") runs
    128 fp32 steps on the step route rotated by "auto" and by "descending",
@@ -303,11 +298,9 @@ from pffdtd_tpu_torch.io.simdata import MMb
 from pffdtd_tpu_torch.kernels import WRAPPERS, _build
 from pffdtd_tpu_torch.kernels.boundary import boundary_update, \
     boundary_update_plain
-from pffdtd_tpu_torch.kernels.energy import (GRID_THREADS, MID_BLOCKS,
+from pffdtd_tpu_torch.kernels.energy import (GRID_THREADS,
                                              energy_boundary_pass,
                                              energy_boundary_pass_plain,
-                                             energy_grid_pass,
-                                             energy_grid_pass_plain,
                                              scratch_size, shell_points)
 from pffdtd_tpu_torch.kernels.modal import (loop_modes, modal_scan,
                                             modal_scan_plain,
@@ -325,11 +318,11 @@ from pffdtd_tpu_torch.kernels.tb import (TBScene, tb_sweep, tb_sweep_plain,
                                          tile_threads)
 from pffdtd_tpu_torch.materials import fit_to_Sabs_oct_11
 from pffdtd_tpu_torch.parallel.sharded_engine import make_sharded_engine
-from pffdtd_tpu_torch.kernels import orient_probe
-from pffdtd_tpu_torch.kernels.orient_probe import (FLOOR_SABS, HALL,
-                                                   HALL_RXYZ, WALLS_SABS,
-                                                   lane_fill)
-from pffdtd_tpu_torch.scene import (boundary_face_counts, fold_fcc_sim,
+from pffdtd_tpu_torch.probes import orient as orient_probe
+from pffdtd_tpu_torch.probes.orient import (FLOOR_SABS, HALL, HALL_RXYZ,
+                                            WALLS_SABS, lane_fill)
+from pffdtd_tpu_torch.scene import (DEF11, boundary_face_counts,
+                                    fold_fcc_sim, headline_rxyz,
                                     make_sloped_room, mats_from_DEF_list,
                                     orientation_scores, pad_x_interior,
                                     rotate_sim, rotation_of, sort_sim,
@@ -345,11 +338,6 @@ EPS_SET = 1e-3
 # warm launch, within BN_FACTOR of phase 2's K2
 BN_FACTOR = 1.5
 NT_SMALL = 29
-# the bench's 11-branch material (bench.py:60-63)
-DEF11 = np.array([[d, e, f] for d, e, f in zip(
-    np.geomspace(0.4, 40.0, 11),
-    np.geomspace(2.0, 80.0, 11),
-    np.geomspace(20.0, 2.0e5, 11))])
 HEADLINE = (36.0, 28.0, 23.0, 0.046)
 SMALL = {  # name: (box, h, fcc, fold, Nt), the scenes of test_pallas_stencil
     "cart": ((2.5, 2.0, 1.6), 0.1, False, False, 40),
@@ -396,14 +384,14 @@ NT_LONG, N_WALLS = 384, 240
 # phase 6e: the modal filter's lengths (samples a channel) and rate
 MODAL_CHECK, MODAL_TIMED, FS = 4800, 48000, 48000.0
 FP64_ROWS = {"K8 modal_recurrence"}     # bound at the fp64 peak
-# phase 7: the sloped hall is orient_probe's `HALL` (its receivers
+# phase 7: the sloped hall is probes.orient's `HALL` (its receivers
 # 1.4-1.5 m from the source, `HALL_RXYZ`: 128 steps reach about 5.9 m, its
 # materials fitted to `WALLS_SABS` and `FLOOR_SABS`); the small hall
 # checked against the NumPy oracle
 HALL_SMALL = (4.0, 3.0, 1.9, 2.5, 0.1)
 HALL_SMALL_SR = (np.array([2.2, 1.6, 1.0]),
                  np.array([[1.5, 1.1, 0.9], [2.9, 2.2, 1.3]]))
-# phase 10: orient="auto" against "descending" (orient_probe's scenes)
+# phase 10: orient="auto" against "descending" (probes.orient's scenes)
 ORIENT_SCENES = ("shoebox", "headline")
 # phase 5: (slabs, route) on cuda:0
 SHARDED = ((4, "step", {}), (4, "pair", {}), (4, "tb", {"tb": 3}),
@@ -481,10 +469,9 @@ def headline_scene(nt, open_top=False):
     """The headline box; open_top: without its top wall (phase 2's scene
     for K2's ABC mode)."""
     Lx, Ly, Lz, h = HEADLINE
-    src = np.array([0.45 * Lx, 0.55 * Ly, 0.5 * Lz])
-    rxyz = src + np.array([[1.3, -0.8, 0.6], [-1.3, 1.4, -0.9]])
     sim = synthetic_box_sim(Lx, Ly, Lz, h=h, Nt=nt, fcc=True, lossy=True,
-                            insig_type="impulse", DEF=DEF11, Rxyz=rxyz,
+                            insig_type="impulse", DEF=DEF11,
+                            Rxyz=headline_rxyz(Lx, Ly, Lz),
                             open_top=open_top)
     return sort_sim(fold_fcc_sim(rotate_sim(sim, orient="descending")))
 
@@ -732,7 +719,7 @@ def _k6_compare(sh, u0, u1, vh, gh, sig, timing_reps, abc):
 
 
 def energy_inputs(es, gen, dt):
-    """A random state for K7's passes on the scene `es`: u^{n-1}, u^n,
+    """A random state for K1e and K7 on the scene `es`: u^{n-1}, u^n,
     u^{n+1}, L u^{n-1} (zero halos, as the engine keeps it), vh after the
     step, vh and gh before it, and the source samples."""
     g = es.grid.shape
@@ -744,101 +731,115 @@ def energy_inputs(es, gen, dt):
             randn(gen, dt, MMb, nbl), randn(gen, dt, es.in_ixyz.numel()))
 
 
-def energy_outputs(es, Lu):
-    """Fresh outputs of K7's passes: L u (a copy of `Lu`), the fp64
-    scratch, H, E_lost and E_in (0-d, zero)."""
+def energy_step(k1e, boundary_pass, eng, es, ins):
+    """`k1e` (K1e or its plain version), then `boundary_pass` (K7's or its
+    plain version), from `ins` into fresh outputs: u^{n+1}, L u^n, the
+    fp64 scratch, H, E_lost and E_in (0-d, from zero)."""
+    u0, u1, unew, Lu, vh, vh_prev, gh_prev, sig = ins
     z = lambda: torch.zeros((), dtype=Lu.dtype, device=Lu.device)
-    part = torch.zeros(scratch_size(es.grid, es.ssaf.numel()),
-                       dtype=torch.float64, device=Lu.device)
-    return Lu.clone(), part, z(), z(), z()
-
-
-def energy_passes(passes, es, ins, outs):
-    """The grid pass, then the boundary pass, from `ins` into `outs`."""
-    u0, u1, unew, _, vh, vh_prev, gh_prev, sig = ins
-    Lu, part, H, E_lost, E_in = outs
-    passes[0](es, u0, u1, Lu, part)
-    passes[1](es, unew, u0, vh, vh_prev, gh_prev, sig, part, H, E_lost,
-              E_in)
+    outs = (torch.zeros_like(u0), Lu.clone(),
+            torch.zeros(scratch_size(es.grid, es.ssaf.numel()),
+                        dtype=torch.float64, device=Lu.device), z(), z(), z())
+    k1e(u0, u1, eng.adj, *outs[:3], eng.data.grid, eng.data.sc, es)
+    boundary_pass(es, unew, u0, vh, vh_prev, gh_prev, sig, *outs[2:])
     return outs
 
 
-K7_PASSES = (energy_grid_pass, energy_boundary_pass)
-K7_PLAIN = (energy_grid_pass_plain, energy_boundary_pass_plain)
+def energy_check(eng, gen, timing_reps=0):
+    """K1e (K1's step with K7's grid half in one launch), then K7's
+    boundary pass, vs their plain versions from a random state on the
+    scene of `eng`.
 
-
-def k7_check(eng, gen, timing_reps=0):
-    """K7's two passes vs their plain versions from a random state on the
-    scene of `eng`.  Returns (max rel err of L u^n, max abs err over L u^n,
-    H, dE_lost and dE_in, {name: (K7, plain, fp64 reference)} of the
-    energies (the reference, fp32 states only: the fp64 plain passes on the
-    same inputs with the fp32 run's constants), (grid, boundary) kernel ms,
-    (grid, boundary) plain ms, (grid, boundary) bytes a pass must move)."""
+    Returns a namespace: same (u^{n+1} and L u^n bitwise equal to the
+    plain version's), en {name: (kernels, plain, fp64 reference or None)}
+    of H, dE_lost and dE_in (the reference, fp32 states only: the fp64
+    plain versions on the same inputs with the fp32 run's constants), err
+    (max abs err of u^{n+1}, L u^n and the energies), ms {K1e, K1: kernel
+    ms a call, timed in turns on the same inputs; K7: the boundary pass's}
+    and pms {K1e, K7: the plain versions' ms} or None, and nbytes {K1e,
+    K7}: what a call must move (K1e: u^{n-1}, u^n, adj and L u^{n-1} read,
+    u^{n+1} and L u^n written once an interior point, and the blocks'
+    sums)."""
     d = eng.data
+    g, sc = d.grid, d.sc
     es = EnergyScene.make(d, adj=eng.adj, ssaf=eng.ssaf, mat=eng.mat,
                           in_ixyz=eng.in_ixyz)
     ins = energy_inputs(es, gen, eng.dtype)
-    ok = energy_passes(K7_PASSES, es, ins, energy_outputs(es, ins[3]))
-    op = energy_passes(K7_PLAIN, es, ins, energy_outputs(es, ins[3]))
+    u0, u1, unew, _, vh, vh_prev, gh_prev, sig = ins
+    ok = energy_step(stencil_energy_step, energy_boundary_pass, eng, es, ins)
+    plain = (stencil_energy_step_plain, energy_boundary_pass_plain)
+    op = energy_step(*plain, eng, es, ins)
     torch.cuda.synchronize()
-    r_Lu, a_Lu = rel(ok[0], op[0])
     ref = (None,) * 3
     if eng.dtype == torch.float32:
         es64 = dataclasses.replace(es, ssaf=es.ssaf.double(),
                                    def_table=es.def_table.double())
-        ins64 = tuple(x.double() for x in ins)
-        o64 = energy_passes(K7_PLAIN, es64, ins64,
-                            energy_outputs(es64, ins64[3]))
-        ref = tuple(float(x) for x in o64[2:])
-        del ins64, o64
-        torch.cuda.empty_cache()
+        o64 = energy_step(*plain, eng, es64, tuple(x.double() for x in ins))
+        ref = tuple(float(x) for x in o64[3:])
+        del o64
     en = {k: (float(a), float(b), c) for k, a, b, c in zip(
-        ("H", "dE_lost", "dE_in"), ok[2:], op[2:], ref)}
-    err = max([a_Lu] + [abs(a - b) for a, b, _ in en.values()])
-    ms = pms = (None, None)
+        ("H", "dE_lost", "dE_in"), ok[3:], op[3:], ref)}
+    inner = (slice(1, -1),) * 3
+    isz, pairs = u0.element_size(), 2 * grid_blocks(g)
+    r = SimpleNamespace(
+        same=bool(torch.equal(ok[0][inner], op[0][inner])
+                  and torch.equal(ok[1], op[1])), en=en,
+        err=max([rel(ok[0][inner], op[0][inner])[1], rel(ok[1], op[1])[1]]
+                + [abs(a - b) for a, b, _ in en.values()]),
+        ms=None, pms=None,
+        nbytes={"K1e": (g.n_interior * (5 * isz + eng.adj.element_size())
+                        + 8 * pairs),
+                "K7": (shell_points(g) * 2 * isz
+                       + d.Nbl * (3 * MMb * isz + isz + 4)
+                       + d.in_ixyz.size * (3 * isz + 8)
+                       + 8 * (ok[2].numel() - pairs))})
     if timing_reps:
-        u0, u1, unew, _, vh, vh_prev, gh_prev, sig = ins
-        b_args = (unew, u0, vh, vh_prev, gh_prev, sig)
-        ms = (time_ms(lambda: energy_grid_pass(es, u0, u1, ok[0], ok[1]),
-                      timing_reps),
-              time_ms(lambda: energy_boundary_pass(es, *b_args, *ok[1:]),
-                      timing_reps))
-        pms = (time_ms(lambda: energy_grid_pass_plain(es, u0, u1, op[0],
-                                                      op[1]), 2),
-               time_ms(lambda: energy_boundary_pass_plain(es, *b_args,
-                                                          *op[1:]), 2))
-    isz, nbl = ins[0].element_size(), d.Nbl
-    pairs = 2 * grid_blocks(d.grid)     # the grid pass's partial sums
-    nbytes = (d.grid.n_interior * (4 * isz + eng.adj.element_size())
-              + 8 * pairs,
-              shell_points(d.grid) * 2 * isz
-              + nbl * (3 * MMb * isz + isz + 4)
-              + d.in_ixyz.size * (3 * isz + 8) + 8 * (ok[1].numel() - pairs))
+        b_args = (es, unew, u0, vh, vh_prev, gh_prev, sig)
+        calls = {
+            "K1e": lambda: stencil_energy_step(u0, u1, eng.adj, *ok[:3], g,
+                                               sc, es),
+            "K1": lambda: stencil_step(u0, u1, eng.adj, ok[0], g, sc)}
+        r.ms = {k: float("inf") for k in calls}
+        for _ in range(3):      # in turns, the best of three windows each
+            for k, fn in calls.items():
+                r.ms[k] = min(r.ms[k], time_ms(fn, timing_reps))
+        r.ms["K7"] = time_ms(lambda: energy_boundary_pass(*b_args, *ok[2:]),
+                             timing_reps)
+        r.pms = {"K1e": time_ms(lambda: stencil_energy_step_plain(
+                     u0, u1, eng.adj, *op[:3], g, sc, es), 2),
+                 "K7": time_ms(lambda: energy_boundary_pass_plain(
+                     *b_args, *op[2:]), 2)}
     del ins, ok, op
     torch.cuda.empty_cache()
-    return r_Lu, err, en, ms, pms, nbytes
+    return r
 
 
-def k7_print_require(where, r, fp32):
-    """Prints a k7_check result and holds it to its bars (see the module
-    docstring)."""
-    r_Lu, err, en, ms, pms, nbytes = r
-    t = (f"; grid pass {ms[0]:.4f} ms, boundary pass {ms[1]:.4f} ms (plain "
-         f"{pms[0]:.4f}, {pms[1]:.4f}); bounds at the published rate "
-         f"{nbytes[0] / HBM_BPS * 1e3:.4f} and "
-         f"{nbytes[1] / HBM_BPS * 1e3:.4f} ms ({nbytes[0] / 1e9:.4f} and "
-         f"{nbytes[1] / 1e9:.4f} GB)" if ms[0] is not None else "")
-    print(f"[2] K7 {where}: L u^n max rel err {r_Lu:.3e}; energies (K7, "
-          f"plain, fp64 reference) {en}; max abs err {err:.3e}{t}",
-          flush=True)
-    require(r_Lu <= (1e-6 if fp32 else 1e-12),
-            f"K7 {where}: L u^n disagrees: {r_Lu}")
-    require_energies(f"K7 {where}", en, fp32)
+def energy_print_require(where, r, fp32):
+    """Prints an energy_check result and holds it to its bars: u^{n+1} and
+    L u^n bitwise equal to the plain version's; the energies as
+    `require_energies` holds them."""
+    t = ""
+    if r.ms is not None:
+        m, p, b = r.ms, r.pms, r.nbytes
+        t = (f"; K1e {m['K1e']:.4f} ms beside K1 {m['K1']:.4f} ms (in "
+             f"turns, best of 3 windows), plain {p['K1e']:.4f} ms; K7's "
+             f"boundary pass {m['K7']:.4f} ms, plain {p['K7']:.4f} ms; "
+             f"bounds at the published rate "
+             f"{b['K1e'] / HBM_BPS * 1e3:.4f} and "
+             f"{b['K7'] / HBM_BPS * 1e3:.4f} ms ({b['K1e'] / 1e9:.4f} and "
+             f"{b['K7'] / 1e9:.4f} GB)")
+    print(f"[2] K1e + K7 {where}: u^(n+1) and L u^n bitwise equal to the "
+          f"plain version {r.same}; energies (kernels, plain, fp64 "
+          f"reference) {r.en}; max abs err {r.err:.3e}{t}", flush=True)
+    require(r.same, f"K1e {where}: u^(n+1) or L u^n differs from the plain "
+            f"version")
+    require_energies(f"K1e + K7 {where}", r.en, fp32)
 
 
 def require_energies(where, en, fp32):
     """{name: (kernel, plain, fp64 reference)}: in fp32 the kernel's value
-    no further from the fp64 reference than the plain version's, in fp64
+    no further from the fp64 reference than the plain version's (K7 sums
+    in fp64 and must not be less accurate than what it replaces), in fp64
     within 1e-12 of the plain version's."""
     for k, (a, b, ref) in en.items():
         if fp32:
@@ -850,114 +851,9 @@ def require_energies(where, en, fp32):
                     f"{where}: {k} {a} vs plain {b}")
 
 
-def k1e_check(eng, gen, timing_reps=0):
-    """K1e (K1's energy mode) vs its plain version from a random state on
-    the scene of `eng`, its scratch vs K7's grid pass's, and the energies
-    after K7's boundary pass on each scratch (as k7_check).
-
-    Returns a namespace: same (u^{n+1} and L u^n bitwise equal to the
-    plain version's), grid_same (L u^n and the scratch bitwise equal to
-    the grid pass's), sums_rel (the scratch's max rel err against the grid
-    pass's), en {name: (K1e, plain, fp64 reference or None)}, err (max
-    abs err of u^{n+1}, L u^n and the energies against the plain
-    version), ms {K1e, K1, K7g: kernel ms a call, timed in turns on the
-    same inputs; plain: the plain version's} or None, and nbytes, what a
-    K1e call must move: u^{n-1}, u^n, adj and L u^{n-1} read, u^{n+1} and
-    L u^n written once an interior point, and the blocks' sums."""
-    d = eng.data
-    g, sc = d.grid, d.sc
-    es = EnergyScene.make(d, adj=eng.adj, ssaf=eng.ssaf, mat=eng.mat,
-                          in_ixyz=eng.in_ixyz)
-    ins = energy_inputs(es, gen, eng.dtype)
-    u0, u1, unew, Lu0, vh, vh_prev, gh_prev, sig = ins
-
-    def run(k1e, boundary_pass):
-        outs = energy_outputs(es, Lu0)
-        out = torch.zeros_like(u0)
-        k1e(u0, u1, eng.adj, out, *outs[:2], g, sc, es)
-        boundary_pass(es, unew, u0, vh, vh_prev, gh_prev, sig, *outs[1:])
-        return (out,) + outs
-
-    ok = run(stencil_energy_step, energy_boundary_pass)
-    op = run(stencil_energy_step_plain, energy_boundary_pass_plain)
-    og = energy_outputs(es, Lu0)[:2]
-    energy_grid_pass(es, u0, u1, *og)
-    torch.cuda.synchronize()
-    inner = (slice(1, -1),) * 3
-    # the grid sums and their middle stage (the boundary pass's follow)
-    sums = slice(0, 2 * grid_blocks(g) + 2 * MID_BLOCKS)
-    ref = (None,) * 3
-    if eng.dtype == torch.float32:
-        es64 = dataclasses.replace(es, ssaf=es.ssaf.double(),
-                                   def_table=es.def_table.double())
-        ins64 = tuple(x.double() for x in ins)
-        o64 = energy_passes(K7_PLAIN, es64, ins64,
-                            energy_outputs(es64, ins64[3]))
-        ref = tuple(float(x) for x in o64[2:])
-        del ins64, o64
-    en = {k: (float(a), float(b), c) for k, a, b, c in zip(
-        ("H", "dE_lost", "dE_in"), ok[3:], op[3:], ref)}
-    r = SimpleNamespace(
-        same=bool(torch.equal(ok[0][inner], op[0][inner])
-                  and torch.equal(ok[1], op[1])),
-        grid_same=bool(torch.equal(ok[1], og[0])
-                       and torch.equal(ok[2][sums], og[1][sums])),
-        sums_rel=rel(ok[2][sums], og[1][sums])[0], en=en,
-        err=max([rel(ok[0][inner], op[0][inner])[1], rel(ok[1], op[1])[1]]
-                + [abs(a - b) for a, b, _ in en.values()]),
-        ms=None,
-        nbytes=(g.n_interior * (5 * ins[0].element_size()
-                                + eng.adj.element_size())
-                + 16 * grid_blocks(g)))
-    if timing_reps:
-        out, Lu, part = ok[:3]
-        calls = {
-            "K1e": lambda: stencil_energy_step(u0, u1, eng.adj, out, Lu,
-                                               part, g, sc, es),
-            "K1": lambda: stencil_step(u0, u1, eng.adj, out, g, sc),
-            "K7g": lambda: energy_grid_pass(es, u0, u1, *og)}
-        r.ms = {k: float("inf") for k in calls}
-        for _ in range(3):      # in turns, the best of three windows each
-            for k, fn in calls.items():
-                r.ms[k] = min(r.ms[k], time_ms(fn, timing_reps))
-        r.ms["plain"] = time_ms(lambda: stencil_energy_step_plain(
-            u0, u1, eng.adj, *op[:3], g, sc, es), 2)
-    del ins, ok, op, og
-    torch.cuda.empty_cache()
-    return r
-
-
-def k1e_print_require(where, r, fp32):
-    """Prints a k1e_check result and holds it to its bars: u^{n+1} and
-    L u^n bitwise equal to the plain version's, the scratch within 1e-12
-    of K7's grid pass's (bitwise equality printed), the energies as K7's
-    (in fp32 H, the one that reads K1e's sums)."""
-    t = ""
-    if r.ms is not None:
-        m = r.ms
-        t = (f"; K1e {m['K1e']:.4f} ms beside K1 {m['K1']:.4f} + K7's grid "
-             f"pass {m['K7g']:.4f} = {m['K1'] + m['K7g']:.4f} ms (in turns, "
-             f"best of 3 windows), plain {m['plain']:.4f} ms; bound "
-             f"{r.nbytes / HBM_BPS * 1e3:.4f} ms at the published rate, "
-             f"{r.nbytes / 1e9:.4f} GB")
-    print(f"[2] K1e {where}: u^(n+1) and L u^n bitwise equal to the plain "
-          f"version {r.same}; L u^n and sums bitwise equal to K7's grid "
-          f"pass {r.grid_same} (sums max rel err {r.sums_rel:.3e}); "
-          f"energies (K1e, plain, fp64 reference) {r.en}; max abs err "
-          f"{r.err:.3e}{t}", flush=True)
-    require(r.same, f"K1e {where}: u^(n+1) or L u^n differs from the plain "
-            f"version")
-    require(r.sums_rel <= 1e-12, f"K1e {where}: sums vs K7's grid pass "
-            f"{r.sums_rel}")
-    # in fp32 only H reads K1e's sums: dE_lost and dE_in are K7's boundary
-    # pass's alone, which k7_check holds
-    require_energies(f"K1e {where}", {"H": r.en["H"]} if fp32 else r.en,
-                     fp32)
-
-
 def grid_blocks(grid):
-    """Blocks of K1e's launch, and of K7's grid pass: z-runs of
-    GRID_THREADS points of the interior's (x, y) rows."""
+    """Blocks of K1e's launch: z-runs of GRID_THREADS points of the
+    interior's (x, y) rows."""
     return (-(-(grid.Nz - 2) // GRID_THREADS) * (grid.Ny - 2)
             * (grid.Nx - 2))
 
@@ -1032,7 +928,7 @@ def eps_check(n, s):
         reset_counts()
         u = e.run(nt=NT_SMALL, verbose=False)
         c = counts()
-        want = (energy_launches(NT_SMALL)[0] if b == "energy"
+        want = (energy_launches(NT_SMALL) if b == "energy"
                 else counts_of(e, 1, NT_SMALL))
         require(c == want, f"{n} {b} fp32_eps: launches {named(c)}")
         errs[b] = rel_err(u, up)
@@ -1286,110 +1182,72 @@ def energy_rows_equal(a, b):
                for k in ("u_out", "H_tot", "E_lost", "E_in"))
 
 
-def two_pass_step_energy(eng, state, sig_n, out_row, en):
-    """The energy step as the route ran before K1e: K7's grid pass, the
-    step (K1 + K2 + sources), K7's boundary pass, from the kernels'
-    wrappers on the engine's state (a measurement path only)."""
-    es = eng.energy_scene
-    u0, u1, _, vh, gh = state
-    energy_grid_pass(es, u0, u1, en.Lu, en.part)
-    en.vh_prev.copy_(vh)
-    en.gh_prev.copy_(gh)
-    eng.step(state, sig_n, out_row)
-    H = torch.empty((), dtype=eng.dtype, device=eng.device)
-    return energy_boundary_pass(es, state[1], u0, state[3], en.vh_prev,
-                                en.gh_prev, sig_n, en.part, H, en.E_lost,
-                                en.E_in)
-
-
-def two_pass_engine(sim, dtype):
-    """An energy engine whose steps run `two_pass_step_energy`."""
-    e = engine(sim, dtype, energy_on=True)
-    e.step_energy = lambda *a: two_pass_step_energy(e, *a)
-    return e
+def energy_runs(name, e, nt, reps):
+    """`reps` more runs of the energy engine `e` over nt steps, launches
+    checked per run; every run's receivers, energies and final fields must
+    be bitwise equal to those `e` holds from its run before the call.
+    Returns the best seconds."""
+    rows = ("u_out", "H_tot", "E_lost", "E_in")
+    first = ([getattr(e, a).copy() for a in rows],
+             [f.clone() for f in e.state])
+    t = []
+    for _ in range(reps):
+        reset_counts()
+        e.run(nt=nt, verbose=False)
+        c = counts()
+        require(c == energy_launches(nt), f"{name} energy route launches "
+                f"{named(c)}, want {named(energy_launches(nt))}")
+        require(all(np.array_equal(getattr(e, a), b)
+                    for a, b in zip(rows, first[0])) and all(
+            torch.equal(a, b) for a, b in zip(e.state, first[1])),
+            f"{name}: a run of the energy route differs from the first "
+            f"run's bits")
+        t.append(e.elapsed)
+    return min(t)
 
 
 def energy_launches(nt):
     """The launches of an nt-step energy run: K1e, K2 and K7's boundary
-    pass once a step (and K7's grid pass never); of a two-pass run."""
-    return (launches(K1e=nt, K2=nt, K7=nt),
-            launches(K7g=nt, K1=nt, K2=nt, K7=nt))
-
-
-def fused_vs_two_pass(name, e, e2, nt, reps):
-    """`reps` runs each of the energy route `e` and the two-pass route
-    `e2` over nt steps, in turns (e, e2, e, e2, ...), launches checked per
-    run; every run's receivers, energies and final fields must be bitwise
-    equal to the first's.  Returns (best seconds of e, of e2)."""
-    want = dict(zip(("fused", "two-pass"), energy_launches(nt)))
-    t = {"fused": [], "two-pass": []}
-    rows = ("u_out", "H_tot", "E_lost", "E_in")
-    first = None      # the first run's rows and final fields
-    for _ in range(reps):
-        for k, x in (("fused", e), ("two-pass", e2)):
-            reset_counts()
-            x.run(nt=nt, verbose=False)
-            c = counts()
-            require(c == want[k], f"{name} {k} energy route launches "
-                    f"{named(c)}, want {named(want[k])}")
-            t[k].append(x.elapsed)
-            if first is None:
-                first = ([getattr(x, a).copy() for a in rows],
-                         [f.clone() for f in x.state])
-                continue
-            require(all(np.array_equal(getattr(x, a), b)
-                        for a, b in zip(rows, first[0])) and all(
-                torch.equal(a, b) for a, b in zip(x.state, first[1])),
-                f"{name}: a run of the {k} route differs from the first "
-                f"fused run's bits")
-    return min(t["fused"]), min(t["two-pass"])
+    pass once a step."""
+    return launches(K1e=nt, K2=nt, K7=nt)
 
 
 def phase6(sim, eng, u_k, t_k, small):
     """Energy accounting, checkpoint/resume, the per-chunk hook and the
     modal filter on the card.  eng: phase 4's fp32 step engine on the
     headline scene, u_k and t_k its receivers and best time.  Returns the
-    launches of the fp32 headline energy run, its ms a step and the
-    two-pass route's, and K8's row of the kernels' record."""
+    launches of the fp32 headline energy run and its ms a step, and K8's
+    row of the kernels' record."""
     g = eng.data.grid
     npts = g.Nx * g.Ny * g.Nz
 
     # (a) energy on the small fp64 scenes: K1e + K2 + K7 against the plain
-    # path and the two-pass route
+    # path
     for n, s in small.items():
         ek = engine(s, np.float64, energy_on=True)
         reset_counts()
         uk = ek.run(verbose=False)
         c = counts()
-        require(c == energy_launches(ek.Nt)[0],
+        require(c == energy_launches(ek.Nt),
                 f"{n} energy route launches {named(c)}, want {ek.Nt} K1e, "
                 f"K2 and K7")
         ep = engine(s, np.float64, energy_on=True, use_kernels=False)
         ep.run(verbose=False)
-        e2 = two_pass_engine(s, np.float64)
-        e2.run(verbose=False)
         bal = np.abs(ek.energy_balance()).max()
         errs = {a: float(np.abs(getattr(ek, a) - getattr(ep, a)).max()
                          / np.abs(getattr(ep, a)).max())
                 for a in ("H_tot", "E_lost", "E_in")}
         same = np.array_equal(uk, engine(s, np.float64).run(verbose=False))
-        same2 = energy_rows_equal(ek, e2) and all(
-            torch.equal(a, b) for a, b in zip(ek.state, e2.state))
         print(f"[6a] {n} fp64 energy: balance {bal:.3e}, E_lost[-1] "
               f"{ek.E_lost[-1]:.6e}, vs plain path {errs}, receivers "
-              f"bitwise equal to the energy-off run {same}; receivers, "
-              f"energies and fields bitwise equal to the two-pass route "
-              f"{same2}", flush=True)
+              f"bitwise equal to the energy-off run {same}", flush=True)
         require(bal < 1e-10 and ek.E_lost[-1] > 0,
                 f"{n}: energy balance {bal}, E_lost[-1] {ek.E_lost[-1]}")
         require(max(errs.values()) <= 1e-12, f"{n}: energies vs plain {errs}")
         require(same, f"{n}: the energy route changed the receivers")
-        require(same2, f"{n}: the energy route differs from the two-pass "
-                f"route")
 
     # (b) energy on the headline scene, fp32 then fp64, NT steps each
-    # against the step route and the two-pass route, in turns; then fp64
-    # over NT_LONG steps, past the walls
+    # against the step route; then fp64 over NT_LONG steps, past the walls
     sim_long = headline_scene(NT_LONG)
     rec = None
     for dt in (np.float32, np.float64):
@@ -1410,31 +1268,25 @@ def phase6(sim, eng, u_k, t_k, small):
         u = e.run(nt=NT, verbose=False)
         c = counts()
         peak = (torch.cuda.max_memory_allocated() - base) / 1e9
-        e2 = two_pass_engine(s, dt)
-        t1, t2 = fused_vs_two_pass(f"headline {name}", e, e2, NT, 3)
+        t1 = energy_runs(f"headline {name}", e, NT, 3)
         bal = np.abs(e.energy_balance()).max()
         same = np.array_equal(u, u_off)
         print(f"[6b] headline {name} energy route (K1e + K2 + K7): "
               f"{npts * NT / t1 / 1e6:.1f} MVPS ({t1:.4f} s, "
-              f"{t1 / NT * 1e3:.4f} ms a step, best of 3) against the "
-              f"two-pass route's (K7g + K1 + K2 + K7) "
-              f"{npts * NT / t2 / 1e6:.1f} ({t2 / NT * 1e3:.4f} ms a step, "
-              f"best of 3, in turns) and the step route's "
-              f"{npts * NT / t_off / 1e6:.1f} ({t_off / NT * 1e3:.4f} ms); "
-              f"launches {named(c)}; every run of both routes bitwise "
-              f"equal (receivers, energies, final fields); balance "
+              f"{t1 / NT * 1e3:.4f} ms a step, best of 3) against the step "
+              f"route's {npts * NT / t_off / 1e6:.1f} "
+              f"({t_off / NT * 1e3:.4f} ms); launches {named(c)}; every run "
+              f"bitwise equal (receivers, energies, final fields); balance "
               f"{bal:.3e}; E_lost[-1] {e.E_lost[-1]:.6e}; receivers bitwise "
               f"equal to the step route {same}; peak device memory "
               f"{peak:.2f} GB (the engine's own)", flush=True)
-        require(c == energy_launches(NT)[0],
+        require(c == energy_launches(NT),
                 f"{name} energy launches {named(c)}")
         require(np.isfinite(e.H_tot).all() and e.E_in[-1] > 0,
                 f"{name}: energies not finite or no input energy")
         require(same, f"headline {name}: energy route receivers differ")
-        del e2
-        torch.cuda.empty_cache()
         if dt == np.float32:
-            rec = (c, t1 / NT * 1e3, t2 / NT * 1e3)
+            rec = (c, t1 / NT * 1e3)
         else:
             require(bal < 1e-9, f"headline fp64 energy balance {bal}")
             reset_counts()
@@ -1449,7 +1301,7 @@ def phase6(sim, eng, u_k, t_k, small):
                   f"{bal:.3e}; E_lost at step {N_WALLS} {El[N_WALLS - 1]:.6e}"
                   f", at {NT_LONG} {El[-1]:.6e} (grew {grow:.6e}); E_in[-1] "
                   f"{e.E_in[-1]:.6e}", flush=True)
-            require(c == energy_launches(NT_LONG)[0],
+            require(c == energy_launches(NT_LONG),
                     f"fp64 {NT_LONG}-step energy launches {named(c)}")
             require(bal < 1e-9, f"headline fp64 {NT_LONG}-step energy "
                     f"balance {bal}")
@@ -1769,7 +1621,7 @@ def phase7(gen, ref_mvps, grid_shape, hall=HALL):
                 f"small hall {name} vs the oracle: {errs}")
         require(bal < 1e-10 and e.E_lost[-1] > 0,
                 f"small hall {name}: balance {bal}, E_lost {e.E_lost[-1]}")
-        require(c == energy_launches(o.Nt)[0]
+        require(c == energy_launches(o.Nt)
                 and c_tb == launches(K1=o.Nt % 3, K2=o.Nt % 3,
                                      K3=o.Nt // 3),
             f"small hall {name}: launches {named(c)}, {named(c_tb)}")
@@ -2160,10 +2012,8 @@ def main():
               flush=True)
     print(f"[2] K3 ABC mode bitwise equal to its plain version; K6 max rel "
           f"err {r6:.3e} (abs {a6:.3e})", flush=True)
-    k7_chk = k7_check(eng, gen, timing_reps=20)
-    k7_print_require("fp32 main shapes", k7_chk, fp32=True)
-    k1e_chk = k1e_check(eng, gen, timing_reps=20)
-    k1e_print_require("fp32 main shapes", k1e_chk, fp32=True)
+    en_chk = energy_check(eng, gen, timing_reps=20)
+    energy_print_require("fp32 main shapes", en_chk, fp32=True)
     # K3 at every TB on the headline scene: checked against its plain
     # version and timed, TB = 2 and 3 (the routes', on the pair and tb
     # engines' scenes) over 20 sweeps, the deeper ones over 3
@@ -2193,10 +2043,8 @@ def main():
                                              gen).items():
             print(f"[2] {k} fp64 {n}: max rel err {r:.3e}", flush=True)
             require(r <= 1e-12, f"{k} fp64 {n} disagrees: {r}")
-        k7_print_require(f"fp64 {n}", k7_check(engine(s, np.float64), gen),
-                         fp32=False)
-        k1e_print_require(f"fp64 {n}", k1e_check(engine(s, np.float64), gen),
-                          fp32=False)
+        energy_print_require(f"fp64 {n}", energy_check(
+            engine(s, np.float64), gen), fp32=False)
         for TB in (2, 3, 8):
             r = tb_check(engine(s, np.float64, backend="tb", tb=TB), gen)[0]
             print(f"[2] K3 TB={TB} fp64 {n}: max rel err {r:.3e}",
@@ -2292,7 +2140,7 @@ def main():
         reset_counts()
         ue = ek.run(verbose=False)
         c = counts()
-        require(c == energy_launches(ek.Nt)[0], f"{n} energy route "
+        require(c == energy_launches(ek.Nt), f"{n} energy route "
                 f"launches {named(c)}")
         add_abc(c)
         ep = engine(s, np.float64, energy_on=True, use_kernels=False)
@@ -2423,18 +2271,17 @@ def main():
     del eng_tb, eng_pair
     torch.cuda.empty_cache()
     p5 = phase5(sim, gen, single, roof)
-    (c_e, e_ms, e2_ms), k8_row = phase6(sim, eng, u_k, t_k, small)
+    (c_e, e_ms), k8_row = phase6(sim, eng, u_k, t_k, small)
     k2_bytes = eng.data.Nbl * (4 * MMb * isz + 8 + isz + 4 + 3 * isz)
     # the whole energy step, each input read and each output written once:
     # u^{n-1}, u^n, adj and L u^{n-1} in, u^{n+1} and L u^n out, an
     # interior point; K2's nodes (branch states in and out); the sums
-    e_bytes = k1e_chk.nbytes + k2_bytes
+    e_bytes = en_chk.nbytes["K1e"] + k2_bytes
     print(f"[6b] the fp32 energy step moves at least {e_bytes / 1e9:.4f} GB:"
           f" {e_bytes / roof / 1e6:.4f} ms at the roof "
           f"({e_bytes / HBM_BPS * 1e3:.4f} at the published rate); the "
           f"route {e_ms:.4f} ms a step "
-          f"({100 * e_bytes / roof / 1e6 / e_ms:.1f}% of it), the two-pass "
-          f"route {e2_ms:.4f} ({100 * e_bytes / roof / 1e6 / e2_ms:.1f}%)",
+          f"({100 * e_bytes / roof / 1e6 / e_ms:.1f}% of it)",
           flush=True)
     phase7(gen, npts * NT / t_k / 1e6, g.shape)
 
@@ -2452,14 +2299,15 @@ def main():
                       0.0, k4["torch_ms"]),
         **p5,
         # K7 on the energy route: its boundary pass (K1e does the grid's)
-        "K7 energy_terms": (c_e[6], k7_chk[1], k7_chk[3][1], k7_chk[4][1],
-                            k7_chk[5][1], 3.0 * shell_points(g)
+        "K7 energy_terms": (c_e[6], en_chk.err, en_chk.ms["K7"],
+                            en_chk.pms["K7"], en_chk.nbytes["K7"],
+                            3.0 * shell_points(g)
                             + 10.0 * MMb * eng.data.Nbl, None),
         "K8 modal_recurrence": k8_row,
-        # K1's step with K7's grid pass: 29 operations a point, 9 more
-        "K1e stencil_energy_step": (c_e[8], k1e_chk.err, k1e_chk.ms["K1e"],
-                                    k1e_chk.ms["plain"], k1e_chk.nbytes,
-                                    38.0 * ni, None),
+        # K1's step with K7's grid half: 29 operations a point, 9 more
+        "K1e stencil_energy_step": (c_e[8], en_chk.err, en_chk.ms["K1e"],
+                                    en_chk.pms["K1e"],
+                                    en_chk.nbytes["K1e"], 38.0 * ni, None),
     }
     # phases 8 and 9 run in processes of their own: free this one's fields
     del eng

@@ -114,21 +114,12 @@ from pffdtd_tpu_torch.engine.torch_engine import TorchEngine
 from pffdtd_tpu_torch.examples import MV_MODEL, REF
 from pffdtd_tpu_torch.kernels import WRAPPERS
 from pffdtd_tpu_torch.parallel.sharded_engine import make_sharded_engine
-from pffdtd_tpu_torch.scene import (fold_fcc_sim, rotate_sim, sort_sim,
-                                    synthetic_box_sim)
+from pffdtd_tpu_torch.scene import (DEF11, fold_fcc_sim, headline_rxyz,
+                                    rotate_sim, sort_sim, synthetic_box_sim)
 
 BASELINE_MVPS = 52512.6  # 2x A100-40GB per-GPU rate, FCC fmax=6.5kHz, lossy
 METRIC = "voxel_update_rate_fp32_fcc_lossy"
 
-# the 11-branch material of bench.py:60-63 (11 RLC branches a material, the
-# reference's benchmark condition)
-DEF11 = np.array([[d, e, f] for d, e, f in zip(
-    np.geomspace(0.4, 40.0, 11),
-    np.geomspace(2.0, 80.0, 11),
-    np.geomspace(20.0, 2.0e5, 11))])
-# the headline's receivers, offsets from the source (1.6 and 2.1 m;
-# chip_smoke.py's)
-HEADLINE_RX = np.array([[1.3, -0.8, 0.6], [-1.3, 1.4, -0.9]])
 # one record a counted run of this process (`counted`)
 LAUNCHES: list = []
 
@@ -143,12 +134,6 @@ def synthetic_scene(fcc, lossy, Lx, Ly, Lz, h, nt, rxyz=None):
     if fcc:
         sim = sort_sim(fold_fcc_sim(rotate_sim(sim, orient="descending")))
     return sim
-
-
-def headline_rxyz(Lx, Ly, Lz):
-    """Receivers 1.6 and 2.1 m from the box's source (at 0.45, 0.55, 0.5
-    of it)."""
-    return np.array([0.45 * Lx, 0.55 * Ly, 0.5 * Lz]) + HEADLINE_RX
 
 
 def drift_scene(nsteps, lossy, h=0.04):

@@ -12,24 +12,14 @@
 //   dE_in   = V h/(2 l2) sum_src((u^{n+1} - u^{n-1}) sig_n)
 // and L u^n for the next step (engine/energy.py holds the plain version).
 //
-// Two passes around the step (K1 + K2 + sources), each with a reduction
-// stage of its own:
-// (a) the grid pass, before the step: reads u^{n-1}, u^n, L u^{n-1} and adj
-//     once and writes L u^n in place over L u^{n-1} (each point reads and
-//     writes only its own cell of L u; halos are never written, so they stay
-//     zero).  The legs read u^n through K1's virtual mirror flips (the fold
-//     ghost at Ny-2 on folded grids) and are summed in leg order, as
-//     `masked_legs` does; Q comes from the point's indices, as in
-//     `abc_regions`: no Q, mask or V grid.  K1's geometry: a block is a
-//     z-run of one (x, y) row, one point a thread, blocks launched z-run,
-//     then y, then x, so the rows in flight span two or three x planes and
-//     the neighbour re-reads stay in L2.  Each block writes the fp64 sums of
-//     the interior term and of the ABC correction; a middle stage of 1024
-//     blocks sums them in fixed contiguous ranges (`pf_energy_mid`).
-//     The engine runs (a) inside K1's launch instead: K1's energy mode
-//     (stencil.cu) writes the same partial sums, to the bit, from the
-//     values it holds for the step, and then this middle stage runs.  This
-//     pass stays as the two-pass yardstick it is timed and checked against.
+// Two stages around the step (K1 + K2 + sources), each with a reduction of
+// its own:
+// (a) the grid sums, in the step's launch: K1's energy mode (K1e,
+//     stencil.cu) writes L u^n in place over L u^{n-1} and, per block of
+//     kGridThreads points of a z-run, the fp64 sums of H's interior term
+//     and of its ABC correction (energy_sums.cuh); a middle stage of 1024
+//     blocks sums them in fixed contiguous ranges (`pf_energy_mid`).  The
+//     plain version of (a) is kernels/energy.py `energy_grid_pass_plain`.
 // (b) the boundary pass, after the step: the ABC loss over the shell of ABC
 //     layer points, the lossy dissipation and H's lossy term over the Nbl
 //     nodes (branch states before the step from the engine's scratch), and
@@ -46,15 +36,9 @@
 // rounded to the state's dtype, then scaled in it), so a single source gives
 // the plain version's bits.
 //
-// Bound: device-memory bandwidth.  Pass (a) moves u^{n-1}, u^n, L u^{n-1},
-// adj and L u^n once a point (fp32 FCC: 18 B, fp64 34 B), plus 16 B of
-// partial sums a block of 128 points; the 12 neighbour re-reads of u^n hit
-// L1/L2 as in K1, which holds only while the blocks in flight span a few x
-// planes (blocks that each walked 8 rows spanned some 27 planes, more than
-// L2 holds, and ran up to several times slower).  A quotient a point costs
-// an fp64 division, which made the fp64 pass several times slower: the
-// term uses 1/l2.  Pass (b) touches the ABC shell (two fields a point) and
-// 3 x 12 branch values a lossy node: a small fraction of (a).
+// Bound: device-memory bandwidth.  Pass (b) touches the ABC shell (two
+// fields a point) and 3 x 12 branch values a lossy node: a small fraction
+// of the step's bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,73 +51,11 @@ constexpr int kThreads = 256;      // the middle stage and the boundary pass
 constexpr int kFinalThreads = 1024;
 constexpr int MMb = 12;
 
-template <int NN>
-__device__ __forceinline__ int3 leg(int k) {
-  if (NN == 6) {
-    const int v[6][3] = {{1, 0, 0}, {-1, 0, 0}, {0, 1, 0},
-                         {0, -1, 0}, {0, 0, 1}, {0, 0, -1}};
-    return make_int3(v[k][0], v[k][1], v[k][2]);
-  } else {
-    const int v[12][3] = {{1, 1, 0},  {-1, -1, 0}, {0, 1, 1},  {0, -1, -1},
-                          {1, 0, 1},  {-1, 0, -1}, {1, -1, 0}, {-1, 1, 0},
-                          {0, 1, -1}, {0, -1, 1},  {1, 0, -1}, {-1, 0, 1}};
-    return make_int3(v[k][0], v[k][1], v[k][2]);
-  }
-}
-
 __device__ __forceinline__ double abc_loss_weight(int Q) {  // 2^-Q Q
   return Q == 3 ? 0.375 : 0.5;
 }
 
-template <typename T, typename A, int NN>
-__global__ void __launch_bounds__(kGridThreads)
-energy_grid_kernel(const T* __restrict__ u0, const T* __restrict__ u1,
-                   const A* __restrict__ adj, T* __restrict__ Lu,
-                   double* __restrict__ part, int Nx, int Ny, int Nz,
-                   int folded, T lfac, T inv_l2) {
-  const int iz = 1 + blockIdx.x * kGridThreads + threadIdx.x;
-  const int iy = 1 + blockIdx.y;
-  const int ix = 1 + blockIdx.z;
-  double s_int = 0.0, s_abc = 0.0;
-  if (iz <= Nz - 2) {
-    const int sy = Nz;
-    const int sx = Ny * Nz;  // the launcher checks that it fits an int
-    const long long c = (long long)ix * sx + (long long)iy * sy + iz;
-    const bool xlo = ix == 1, xhi = ix == Nx - 2;
-    const bool ylo = iy == 1, yhi = iy == Ny - 2;
-    const bool zlo = iz == 1, zhi = iz == Nz - 2;
-    // offset of the neighbour at d = -1, 0, +1 along each axis, after flips
-    const int ox[3] = {xlo ? sx : -sx, 0, xhi ? -sx : sx};
-    const int oy[3] = {ylo ? sy : -sy, 0, yhi ? (folded ? 0 : -sy) : sy};
-    const int oz[3] = {zlo ? 1 : -1, 0, zhi ? -1 : 1};
-    const unsigned a = adj[c];
-    const T* __restrict__ u1c = u1 + c;
-    T acc = T(0);
-#pragma unroll
-    for (int k = 0; k < NN; ++k) {
-      const int3 v = leg<NN>(k);
-      const T bit = T((a >> k) & 1u);
-      const T x = u1c[ox[v.x + 1] + oy[v.y + 1] + oz[v.z + 1]];
-      acc = k == 0 ? bit * x : acc + bit * x;
-    }
-    const T K = T(__popc(a));
-    const T uc = u1c[0];
-    const T L_prev = Lu[c];
-    Lu[c] = lfac * (acc - K * uc);
-    const T du = uc - u0[c];
-    const T term = du * du * inv_l2 - uc * L_prev;
-    s_int = (double)term;
-    const int Q = (xlo || xhi) + (ylo || (yhi && !folded)) + (zlo || zhi);
-    if (Q > 0) s_abc = abc_h_weight(Q) * (double)term;
-  }
-  double v[2] = {s_int, s_abc};
-  const long long b =
-      ((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
-      blockIdx.x;
-  block_sums<2, kGridThreads>(v, part + 2 * b);
-}
-
-// The middle stage of pass (a): block b sums the b-th contiguous range of
+// The middle stage of (a): block b sums the b-th contiguous range of
 // the grid blocks' pairs (threads strided, then the block's fixed tree).
 __global__ void __launch_bounds__(kThreads)
 energy_mid_kernel(const double* __restrict__ pa, long long n,
@@ -233,7 +155,7 @@ energy_boundary_kernel(const T* __restrict__ unew, const T* __restrict__ u0,
 }
 
 // The last stage: one block; pa holds na pairs (interior, ABC correction)
-// from pass (a)'s middle stage, pb nb quadruples of pass (b).
+// from (a)'s middle stage, pb nb quadruples of pass (b).
 template <typename T>
 __global__ void __launch_bounds__(kFinalThreads)
 energy_final_kernel(const double* __restrict__ pa, int na,
@@ -261,17 +183,10 @@ energy_final_kernel(const double* __restrict__ pa, int na,
   }
 }
 
-bool plane_fits(int Ny, int Nz) {
-  return (long long)Ny * Nz + Nz + 1 <= 2147483647LL;
-}
-
-dim3 grid_of(int Nx, int Ny, int Nz) {
-  return dim3((Nz - 2 + kGridThreads - 1) / kGridThreads, Ny - 2, Nx - 2);
-}
-
+// the blocks of K1e's launch (stencil.cu), each of which writes a pair
 long long grid_blocks(int Nx, int Ny, int Nz) {
-  const dim3 g = grid_of(Nx, Ny, Nz);
-  return (long long)g.x * g.y * g.z;
+  return (long long)((Nz - 2 + kGridThreads - 1) / kGridThreads) * (Ny - 2) *
+         (Nx - 2);
 }
 
 Shell make_shell(int Nx, int Ny, int Nz, int folded, long long* nshell) {
@@ -286,29 +201,6 @@ Shell make_shell(int Nx, int Ny, int Nz, int folded, long long* nshell) {
   sh.per_x = (long long)sh.nyf * (Nz - 2) + 2LL * nym;
   *nshell = 2 * sh.plane + (long long)(Nx - 4) * sh.per_x;
   return sh;
-}
-
-template <typename T, typename A, int NN>
-int launch_grid(const void* u0, const void* u1, const void* adj, void* Lu,
-                void* part, long long npart, int Nx, int Ny, int Nz,
-                int folded, double lfac, double inv_l2,
-                cudaStream_t stream) {
-  if (Nx < 5 || Ny < 5 || Nz < 5 || !plane_fits(Ny, Nz))
-    return (int)cudaErrorInvalidValue;
-  if (Nx - 2 > 65535 || Ny - 2 > 65535)
-    return (int)cudaErrorInvalidConfiguration;
-  const long long blocks = grid_blocks(Nx, Ny, Nz);
-  // the scratch: kernels/energy.py `scratch_size` computes the same count
-  if (npart < 2 * blocks + 2 * kMidBlocks) return (int)cudaErrorInvalidValue;
-  double* pa = static_cast<double*>(part);
-  energy_grid_kernel<T, A, NN><<<grid_of(Nx, Ny, Nz), kGridThreads, 0,
-                                 stream>>>(
-      static_cast<const T*>(u0), static_cast<const T*>(u1),
-      static_cast<const A*>(adj), static_cast<T*>(Lu), pa, Nx, Ny, Nz,
-      folded ? 1 : 0, T(lfac), T(inv_l2));
-  const int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  return pf_energy_mid(pa, blocks, stream);
 }
 
 template <typename T>
@@ -357,28 +249,6 @@ extern "C" int pf_energy_mid(double* part, long long blocks,
   energy_mid_kernel<<<kMidBlocks, kThreads, 0, stream>>>(part, blocks,
                                                          part + 2 * blocks);
   return (int)cudaGetLastError();
-}
-
-// Pass (a).  dtype: 0 = float32, 1 = float64; nn: 6 (uint8 adjacency) or
-// 12 (uint16).  Returns cudaGetLastError().
-extern "C" int pf_energy_grid(int dtype, int nn, const void* u0,
-                              const void* u1, const void* adj, void* Lu,
-                              void* part, long long npart, int Nx, int Ny,
-                              int Nz, int folded, double lfac,
-                              double inv_l2, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PF_K7_ARGS \
-  u0, u1, adj, Lu, part, npart, Nx, Ny, Nz, folded, lfac, inv_l2, s
-  if (dtype == 0 && nn == 6)
-    return launch_grid<float, uint8_t, 6>(PF_K7_ARGS);
-  if (dtype == 0 && nn == 12)
-    return launch_grid<float, uint16_t, 12>(PF_K7_ARGS);
-  if (dtype == 1 && nn == 6)
-    return launch_grid<double, uint8_t, 6>(PF_K7_ARGS);
-  if (dtype == 1 && nn == 12)
-    return launch_grid<double, uint16_t, 12>(PF_K7_ARGS);
-#undef PF_K7_ARGS
-  return (int)cudaErrorInvalidValue;
 }
 
 // Pass (b) and the second stage.  cH = V h/2, cH_lossy = V c/(2 l2),

@@ -1,7 +1,7 @@
-// What K7's grid pass (energy.cu) and K1's energy mode (stencil.cu) share:
-// the launch geometry of their grid blocks, the fixed-order block sum and
-// the ABC weight of H, so that the two write the same partial sums to the
-// last bit, and the middle stage that reduces them (energy.cu).
+// What K1's energy mode (K1e, stencil.cu) and K7 (energy.cu) share: the
+// launch geometry of K1e's grid blocks, whose partial sums K7's middle
+// stage reduces, the fixed-order block sum both use, and the ABC weight
+// of H.
 
 #pragma once
 
@@ -9,7 +9,7 @@
 
 namespace {
 
-constexpr int kGridThreads = 128;  // a z-run of one (x, y) row, as K1's
+constexpr int kGridThreads = 128;  // a z-run of one (x, y) row, as K1e's
 constexpr int kMidBlocks = 1024;   // blocks of the middle stage
 
 // Sums v[0..NS) over the block in a fixed order (warp tree, then the warps

@@ -61,25 +61,23 @@
 //
 // K1e, energy mode (stencil_energy_kernel): the 1-D design, one z-run of 128
 // points of a (y, x) row a block, the step above and, in the same launch,
-// what K7's grid pass (energy.cu, pass (a)) computes for the
-// energy-instrumented step (pffdtd_tpu/engine/jax_engine.py `step_energy`):
-// each interior point reads L u^{n-1} from its own cell of Lu and writes
-// L u^n = lfac (acc - K u^n) over it (in place: a point touches only its own
-// cell, and halos are never written, so they stay zero), then forms H's
-// term du^2 / l2 - u^n L u^{n-1}, du = u^n - u^{n-1}, from the registers the
-// step already holds (acc, K, u^n, u^{n-1}), with the grid pass's operations
-// in its order.  Each thread picks, per axis, the signed offset of its -1
-// and +1 neighbours once (flipped at a halo) and each leg adds two of them.
-// The block writes the fp64 sums of the term and of (1 - 2^-Q) x term on
-// ABC points with the grid pass's block tree (energy_sums.cuh) at pair 2b
-// of part, b the block index in the same launch geometry, so part holds the
-// grid pass's bits; the launcher then runs its middle stage.  Tail threads
-// past Nz-2 fall through with zero sums, since the block sum has a barrier.
-// It keeps that geometry, which K7's grid pass is held to bit for bit, and
-// so stays apart from K1's march.  It moves L u read and written once a
-// point besides the step's bytes (fp32 FCC: 22 B) and 16 B of sums a block,
-// where the separate grid pass moved 18 B a point and read u^n's neighbours
-// again.
+// the grid half of K7 (energy.cu) for the energy-instrumented step
+// (pffdtd_tpu/engine/jax_engine.py `step_energy`): each interior point
+// reads L u^{n-1} from its own cell of Lu and writes L u^n = lfac (acc -
+// K u^n) over it (in place: a point touches only its own cell, and halos
+// are never written, so they stay zero), then forms H's term du^2 / l2 -
+// u^n L u^{n-1}, du = u^n - u^{n-1}, from the registers the step already
+// holds (acc, K, u^n, u^{n-1}), with the operations of the plain version
+// (kernels/energy.py `energy_grid_pass_plain`) in its order.  Each thread
+// picks, per axis, the signed offset of its -1 and +1 neighbours once
+// (flipped at a halo) and each leg adds two of them.  The block writes the
+// fp64 sums of the term and of (1 - 2^-Q) x term on ABC points with the
+// block tree of energy_sums.cuh at pair 2b of part, b the block index; the
+// launcher then runs K7's middle stage.  Tail threads past Nz-2 fall
+// through with zero sums, since the block sum has a barrier.  It moves L u
+// read and written once a point besides the step's bytes (fp32 FCC: 22 B)
+// and 16 B of sums a block.  Left for later: K1's march for K1e, whose
+// block sums would then take the march's order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -345,28 +343,26 @@ int step(int dtype, int nn, const void* u0, const void* u1, const void* adj,
   return (int)cudaErrorInvalidValue;
 }
 
-// ---- K1e: the 1-D design, laid out as K7's grid pass
+// ---- K1e: the 1-D design
 
 constexpr int kThreads = 128;  // one z-run of a (y, x) row per block
 static_assert(kThreads == kGridThreads,
-              "the energy mode's partial sums use K7's grid-pass layout");
+              "K7's middle stage reads the energy mode's blocks' sums");
 
 // what the energy mode reads and writes besides the step's tensors
 template <typename T>
 struct EnergyArgs {
   T* Lu;         // L u^{n-1} in, L u^n out (in place)
-  double* part;  // the grid pass's fp64 scratch
+  double* part;  // K7's fp64 scratch
   T lfac, inv_l2;
 };
 
-// The two ints after lQ3 are not read: they keep the parameters where the
-// kernel had them before K1 moved to the march, and so its SASS.
 template <typename T, typename A, int NN>
 __global__ void __launch_bounds__(kThreads)
 stencil_energy_kernel(const T* __restrict__ u0, const T* __restrict__ u1,
                       const A* __restrict__ adj, T* __restrict__ out,
                       int Nx, int Ny, int Nz, int folded,
-                      T a2, T sl2, T lQ1, T lQ2, T lQ3, int, int,
+                      T a2, T sl2, T lQ1, T lQ2, T lQ3,
                       EnergyArgs<T> e) {
   const int iz = 1 + blockIdx.x * kThreads + threadIdx.x;
   const int iy = 1 + blockIdx.y;
@@ -386,10 +382,9 @@ stencil_energy_kernel(const T* __restrict__ u0, const T* __restrict__ u1,
     const int oz[3] = {zlo ? 1 : -1, 0, zhi ? -1 : 1};
     const unsigned a = adj[c];
     // L u^{n-1} is loaded with the adjacency, ahead of the legs: loaded
-    // after the store of u^{n+1} (the grid pass's place for it), K1e
-    // took 8.49 ms at the headline shapes on the H100 where this order
-    // takes 1.53, and 1.43 late but without the block sum's barrier
-    // (kernels/k1e_probe.py)
+    // after the store of u^{n+1}, K1e took 8.49 ms at the headline shapes
+    // on the H100 where this order takes 1.53, and 1.43 late but without
+    // the block sum's barrier (PERF.md)
     const T L_prev = e.Lu[c];
     const T* __restrict__ u1c = u1 + c;
 
@@ -415,7 +410,7 @@ stencil_energy_kernel(const T* __restrict__ u0, const T* __restrict__ u1,
     }
     out[c] = unew;
 
-    {  // K7's grid pass on the same registers, in its order
+    {  // K7's grid half on the same registers, in the plain order
       const T uc = u1c[0];
       e.Lu[c] = e.lfac * (acc - K * uc);
       const T du = uc - u0c;
@@ -451,7 +446,7 @@ int launch_energy(const void* u0, const void* u1, const void* adj, void* out,
   stencil_energy_kernel<T, A, NN><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(u0), static_cast<const T*>(u1),
       static_cast<const A*>(adj), static_cast<T*>(out), Nx, Ny, Nz,
-      folded ? 1 : 0, T(a2), T(sl2), T(lQ1), T(lQ2), T(lQ3), 0, 0, e);
+      folded ? 1 : 0, T(a2), T(sl2), T(lQ1), T(lQ2), T(lQ3), e);
   const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   return pf_energy_mid(static_cast<double*>(part), blocks, stream);
@@ -473,9 +468,9 @@ extern "C" int pf_stencil_step(int dtype, int nn, const void* u0,
               static_cast<cudaStream_t>(stream));
 }
 
-// K1e: the step plus K7's grid pass (L u^n over Lu in place, the partial
-// sums into part, npart doubles) and its middle stage; lfac and inv_l2 are
-// K7's constants.
+// K1e: the step plus K7's grid half (L u^n over Lu in place, the partial
+// sums into part, npart doubles) and K7's middle stage; lfac and inv_l2
+// are K7's constants.
 extern "C" int pf_stencil_energy_step(int dtype, int nn, const void* u0,
                                       const void* u1, const void* adj,
                                       void* out, void* Lu, void* part,

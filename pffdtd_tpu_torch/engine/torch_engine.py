@@ -102,11 +102,10 @@ def pick_route(backend: str, tb: int = 3):
 
     "auto" takes the single-step route.  The JAX engine's rule sends fp32
     scenes with <= 64 sources to its temporally-blocked kernels
-    (jax_engine.py:776-980), but on the H100 K3 is still the slower route
-    on the headline scene at every TB: its best, TB = 3, takes 1.4205 ms
-    per step (4.2615 ms a sweep) and TB = 2 1.7658, against 1.1370 for
-    K1 + K2 (NVIDIA H100 80GB HBM3 at 700.00 W, chip_smoke.py's TB scan;
-    PERF.md).  The rule is static: nothing is timed at run time."""
+    (jax_engine.py:776-980), but on the H100 K3 takes longer a step at
+    every TB than K1 + K2 (chip_smoke.py's TB scan; the numbers are in
+    PERF.md's kernel table and its section 5).  The rule is static:
+    nothing is timed at run time."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
     if backend in ("auto", "step"):

@@ -3,7 +3,9 @@
 `stream.stream`, the x-slab shard modes K5 `stencil.stencil_step_shard` and
 K6 `tb.tb_sweep_shard`, the energy terms K7 (`energy`) with K1's energy
 mode K1e `stencil.stencil_energy_step`, and the modal recurrence K8
-`modal.modal_scan`.
+`modal.modal_scan`; and the build, `_build`.  Tools that use them (the
+A/B and orientation probes) live above the engine, in
+`pffdtd_tpu_torch.probes`.
 
 Importing this package builds nothing: the CUDA library is compiled on the
 first launch on a CUDA tensor (`_build.library`)."""
@@ -12,16 +14,13 @@ first launch on a CUDA tensor (`_build.library`)."""
 def __getattr__(name):
     """`WRAPPERS`: the kernels' wrappers by name, each of which adds one to
     its `launches` where it launches its kernel; the one table that the
-    bench, `examples.setup_1e9` and chip_smoke.py count with.  K7's
-    boundary pass (K7) and its grid pass (K7g, which the energy route no
-    longer launches: K1e computes it) count apart.  Built on first use:
-    the wrappers' modules import the engine's, which import this
-    package."""
+    bench, `examples.setup_1e9` and chip_smoke.py count with.  K7 is its
+    boundary pass: K1e computes its grid half.  Built on first use: the
+    wrappers' modules import the engine's, which import this package."""
     if name != "WRAPPERS":
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
     from pffdtd_tpu_torch.kernels.boundary import boundary_update
-    from pffdtd_tpu_torch.kernels.energy import (energy_boundary_pass,
-                                                 energy_grid_pass)
+    from pffdtd_tpu_torch.kernels.energy import energy_boundary_pass
     from pffdtd_tpu_torch.kernels.modal import modal_scan
     from pffdtd_tpu_torch.kernels.stencil import (stencil_energy_step,
                                                   stencil_step,
@@ -31,6 +30,6 @@ def __getattr__(name):
     table = {"K1": stencil_step, "K2": boundary_update, "K3": tb_sweep,
              "K4": stream, "K5": stencil_step_shard, "K6": tb_sweep_shard,
              "K7": energy_boundary_pass, "K8": modal_scan,
-             "K1e": stencil_energy_step, "K7g": energy_grid_pass}
+             "K1e": stencil_energy_step}
     globals()["WRAPPERS"] = table
     return table

@@ -72,10 +72,6 @@ SIGNATURES = {
     # local x ranges: owned rows [xa, xb), computable rows [xl, xh), the
     # offset xo, and the stream
     "pf_tb_sweep_shard": _TB_ARGS + [_i] * 5 + [_vp],
-    # dtype, nn, u0, u1, adj, Lu, part, npart, Nx, Ny, Nz, folded, lfac,
-    # inv_l2, stream
-    "pf_energy_grid": [_i, _i, _vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _i, _i,
-                       _d, _d, _vp],
     # dtype, unew, u0, vh, vh_prev, gh_prev, ssaf, mat, def, in_ixyz, sig,
     # nbl, ns, part, npart, Nx, Ny, Nz, folded, Ts, cH, cH_lossy, cL_abc,
     # cL_lossy, cIn, H, E_lost, E_in, stream

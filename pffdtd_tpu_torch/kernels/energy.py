@@ -2,27 +2,24 @@
 plain versions.
 
 Counterpart of what XLA fuses out of `pffdtd_tpu/engine/jax_engine.py`
-`step_energy` (:704-747).  Two passes bracket one step (K1 + K2 + sources):
+`step_energy` (:704-747).  Two halves bracket one step (K1 + K2 + sources):
 
-- `energy_grid_pass(es, u0, u1, Lu, part)`, before the step, from u0 =
-  u^{n-1}, u1 = u^n and Lu = L u^{n-1}: writes L u^n over Lu (in place,
-  halos untouched) and H[n]'s grid terms (interior sum less the ABC
-  correction) into the fp64 scratch `part`;
+- the grid half, from u0 = u^{n-1}, u1 = u^n and Lu = L u^{n-1}: L u^n
+  over Lu (in place, halos untouched) and H[n]'s grid terms (interior sum
+  less the ABC correction) into the fp64 scratch `part`.  On the card K1's
+  energy mode computes it in the step's own launch
+  (`kernels.stencil.stencil_energy_step`, K1e); `energy_grid_pass_plain`
+  is its plain version, K1e's plain half;
 - `energy_boundary_pass(es, unew, u0, vh, vh_prev, gh_prev, sig, part, H,
-  E_lost, E_in)`, after it, from unew = u^{n+1}, u0 = u^{n-1} (which the
-  step leaves as it was), the branch states after (vh) and before
+  E_lost, E_in)`, after the step, from unew = u^{n+1}, u0 = u^{n-1} (which
+  the step leaves as it was), the branch states after (vh) and before
   (vh_prev, gh_prev) the step and the source samples sig: writes H[n] into
   the 0-d `H` and adds dE_lost and dE_in to the 0-d accumulators.
 
-The engine does not launch the grid pass: K1's energy mode
-(`kernels.stencil.stencil_energy_step`, K1e) computes it in the step's own
-launch and writes the same bits into `part`.  The grid pass stays as the
-two-pass design that K1e is checked and timed against.
-
-On CUDA tensors the wrappers launch `csrc/energy.cu`, whose sums are fp64
-per block, then reduced in a fixed order by a second stage of its own (no
-atomics, no `torch.sum`): a run and its resume give the same bits.  On CPU
-tensors they run `energy_grid_pass_plain` and `energy_boundary_pass_plain`,
+On CUDA tensors the boundary pass launches `csrc/energy.cu`, whose sums
+are fp64 per block, then reduced in a fixed order by a stage of its own
+(no atomics, no `torch.sum`): a run and its resume give the same bits.  On
+CPU tensors it runs `energy_boundary_pass_plain`.  The plain versions are
 composed from `engine.energy`'s `hamiltonian_grid`, `laplacian`,
 `hamiltonian_lossy`, `loss_increment` and `input_increment` in the state's
 dtype, with H[n]'s grid terms carried in `part[0]`.  Node, material and
@@ -41,9 +38,9 @@ from pffdtd_tpu_torch.engine.energy import (hamiltonian_grid,
 from pffdtd_tpu_torch.io.simdata import MMb
 from pffdtd_tpu_torch.kernels import _build
 
-# csrc/energy.cu's launch geometry, which sets the scratch's size: grid
-# pass blocks of GRID_THREADS z points, MID_BLOCKS blocks in its middle
-# stage, boundary-pass blocks of THREADS items
+# the launch geometry that sets the scratch's size: K1e's blocks of
+# GRID_THREADS z points, MID_BLOCKS blocks in K7's middle stage,
+# boundary-pass blocks of THREADS items
 GRID_THREADS, MID_BLOCKS, THREADS = 128, 1024, 256
 
 
@@ -59,8 +56,8 @@ def shell_points(grid) -> int:
 
 
 def scratch_size(grid, nbl: int) -> int:
-    """Doubles of fp64 scratch the two passes need: two partial sums a
-    grid-pass block (a z-run of GRID_THREADS points of one (x, y) row) and
+    """Doubles of fp64 scratch K1e and the boundary pass need: two partial
+    sums a K1e block (a z-run of GRID_THREADS points of one (x, y) row) and
     a middle-stage block, four a boundary-pass block (THREADS ABC-shell
     points or lossy nodes each, plus one block for the sources)."""
     Nx, Ny, Nz = grid.shape
@@ -125,38 +122,16 @@ def _check_grid(es, u0, u1, Lu, part):
     Ny, Nz = es.grid.Ny, es.grid.Nz
     if Ny * Nz + Nz + 1 > 2**31 - 1:
         raise ValueError(f"grid {es.grid.shape}: a (y, z) plane must hold "
-                         "< 2**31 points (K7 offsets are 32-bit)")
+                         "< 2**31 points (K1e's offsets are 32-bit)")
     _distinct((("Lu", Lu), ("u0", u0)))
     _distinct((("Lu", Lu), ("u1", u1)))
     return dev, nn
 
 
-def energy_grid_pass(es, u0, u1, Lu, part):
-    """K7's grid pass: L u^n over Lu, H[n]'s grid terms into `part`;
-    returns Lu.  es: engine.energy.EnergyScene; u0, u1, Lu: (Nx, Ny, Nz) in
-    the state's dtype; part: (scratch_size(grid, Nbl),) float64."""
-    dev, nn = _check_grid(es, u0, u1, Lu, part)
-    if dev.type == "cpu":
-        return energy_grid_pass_plain(es, u0, u1, Lu, part)
-    lib = _build.library()
-    g = es.grid
-    with _build.on_device(dev):
-        rc = lib.pf_energy_grid(
-            0 if u1.dtype == torch.float32 else 1, nn, u0.data_ptr(),
-            u1.data_ptr(), es.adj.data_ptr(), Lu.data_ptr(),
-            part.data_ptr(), part.numel(), g.Nx, g.Ny, g.Nz, int(g.folded),
-            es.lfac, es.inv_l2, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "energy_grid_pass")
-    energy_grid_pass.launches += 1
-    return Lu
-
-
-energy_grid_pass.launches = 0
-
-
 def energy_grid_pass_plain(es, u0, u1, Lu, part):
-    """PyTorch version of K7's grid pass (same signature and result; H[n]'s
-    grid terms, in the state's dtype, go to part[0])."""
+    """PyTorch version of K7's grid half, which K1e computes on the card:
+    L u^n over Lu, H[n]'s grid terms, in the state's dtype, to part[0];
+    returns Lu."""
     part[0] = hamiltonian_grid(es, u0, u1, Lu)
     laplacian(es, u1, Lu)
     return Lu
@@ -192,7 +167,7 @@ def energy_boundary_pass(es, unew, u0, vh, vh_prev, gh_prev, sig, part, H,
     dE_in added to `E_lost` and `E_in` (0-d, the state's dtype); returns H.
     unew = u^{n+1}, u0 = u^{n-1}; vh (MMb, Nbl) after the step, vh_prev and
     gh_prev before it; sig (Ns,) the step's source samples; part: the
-    scratch the grid pass filled."""
+    scratch K1e filled."""
     dev, nbl = _check_boundary(es, unew, u0, vh, vh_prev, gh_prev, sig,
                                part, H, E_lost, E_in)
     if dev.type == "cpu":
@@ -224,8 +199,8 @@ energy_boundary_pass.launches = 0
 def energy_boundary_pass_plain(es, unew, u0, vh, vh_prev, gh_prev, sig, part,
                                H, E_lost, E_in):
     """PyTorch version of K7's boundary pass (same signature and result):
-    H[n] = part[0] (the grid pass's terms) + the lossy term, in the state's
-    dtype."""
+    H[n] = part[0] (the plain grid half's terms) + the lossy term, in the
+    state's dtype."""
     Hn = part[0].to(H.dtype)
     if es.ssaf.numel():
         Hn = Hn + hamiltonian_lossy(es, vh_prev, gh_prev)

@@ -20,10 +20,10 @@ x-slab (`engine.data.SlabSpec`), the counterpart of
 `pffdtd_tpu/engine/pallas_stencil.py` `build_fused_stencil_sharded`.
 
 `stencil_energy_step` (K1e, the 1-D kernel of the same source) runs the step
-and, in the same launch, K7's grid pass (`kernels.energy`): L u^n over L
-u^{n-1} in place and H[n]'s grid sums into K7's scratch, the bits that
-`energy_grid_pass` writes.  Its plain version, `stencil_energy_step_plain`,
-is `energy_grid_pass_plain` followed by `stencil_step_plain`.
+and, in the same launch, K7's grid half (`kernels.energy`): L u^n over L
+u^{n-1} in place and H[n]'s grid sums into K7's scratch.  Its plain
+version, `stencil_energy_step_plain`, is `energy_grid_pass_plain` followed
+by `stencil_step_plain`.
 """
 
 from __future__ import annotations
@@ -184,7 +184,7 @@ stencil_step.geometry = None   # the K1Geometry of the last launch
 
 
 def stencil_energy_step(u0, u1, adj, out, Lu, part, grid, sc, es):
-    """One K1e call: K1's step into `out` and K7's grid pass in the same
+    """One K1e call: K1's step into `out` and K7's grid half in the same
     launch (L u^n over `Lu`, H[n]'s grid sums into `part`, then K7's
     middle stage); returns `out`.
 
@@ -220,7 +220,7 @@ stencil_energy_step.launches = 0
 
 def stencil_energy_step_plain(u0, u1, adj, out, Lu, part, grid, sc, es):
     """PyTorch version of K1e (same signature and result): K7's plain grid
-    pass (H[n]'s grid terms, in the state's dtype, to part[0]), then K1's
+    half (H[n]'s grid terms, in the state's dtype, to part[0]), then K1's
     plain step."""
     from pffdtd_tpu_torch.kernels.energy import energy_grid_pass_plain
     energy_grid_pass_plain(es, u0, u1, Lu, part)

@@ -1,12 +1,14 @@
 """K1, K1e, K2 and K3 of this tree against another checkout's, on the card:
 
-    python -m pffdtd_tpu_torch.kernels.probe --base DIR [--kernels K1,K3]
+    python -m pffdtd_tpu_torch.probes.kernel_ab --base DIR [--kernels K1,K3]
 
-DIR holds another checkout's `csrc/` files: `stencil.cu` (and `energy.cu`,
-if its K1 calls K7's middle stage) for K1 and K1e, `boundary.cu` for K2,
-`tb.cu` and `tb_shard.cu` for K3 (and K6).  Both trees' sources are built
-by nvcc, with the kernels' flags, into libraries of their own under
-`_build/probe/`.  For each kernel:
+DIR holds another checkout's `csrc/` files: `stencil.cu` and `energy.cu`
+(K7's middle stage, which K1e calls) with `energy_sums.cuh` for K1 and
+K1e, `boundary.cu` for K2, `tb.cu` and `tb_shard.cu` for K3 (and K6).  A
+base whose K1 has no march (no tiles) or whose K2 or K3 has no ABC mode
+is refused.  Both trees' sources are built by nvcc, with the kernels'
+flags, into libraries of their own under `_build/probe/`.  For each
+kernel:
 1. the SASS of the instances that both trees have (K1's march, which K5
    shares, at every tile width; K1e; K2 without its ABC mode; K3 and K6
    without theirs, at every dtype, adjacency, TB and row width) is
@@ -15,19 +17,18 @@ by nvcc, with the kernels' flags, into libraries of their own under
    fp32 and fp64: K1 and K1e on random fields at the headline cell's
    shapes (792 x 310 x 510, FCC, every leg set), K1 also at the benchmark
    cell's (1628 x 635 x 1048, FCC) and on the 1.049 Gvox Cartesian box
-   (1288 x 1008 x 808, every leg set), after one call of each compared bit
-   for bit (a base built before K1's march is called without its tiles),
-   K2 on the headline cell's lossy nodes (the 36 x 28 x 23 m folded-FCC
-   box at h = 0.046: 1,169,067 nodes) and K3 (TB = 3) on the headline
-   cell, each from a seeded random state, after one call of each compared
-   bit for bit;
+   (1288 x 1008 x 808, every leg set), K2 on the headline cell's lossy
+   nodes (the 36 x 28 x 23 m folded-FCC box at h = 0.046: 1,169,067
+   nodes) and K3 (TB = 3) on the headline cell, each from a seeded random
+   state, after one call of each compared bit for bit (K1e: u^{n+1}, L
+   u^n and its sums);
 3. K2 and K3: on the same box without its top wall (its lossy nodes on the
    top ABC layer flagged), this tree's kernel in its ABC mode and without
    it on the same inputs, in turns (fp32).
 Times are CUDA-event windows of 20 calls; each line prints every window and
 the best.  Each library's build time is printed (the two trees' builds of
-one kernel run one after the other, each on every core).  The first line printed is the card's name and power limit.
-`kernels.k1e_probe` builds its variants of K1e with the same helpers.
+one kernel run one after the other, each on every core).  The first line
+printed is the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -55,24 +56,18 @@ K1_SHAPES = ((SHAPE, True), ((1628, 635, 1048), True),
 REPS = 20
 PROBE = _build.BUILD / "probe"
 IN_TURNS = ("base", "tree", "tree", "base") * 2
-_vp, _ll, _d, _i = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double,
-                    ctypes.c_int)
-# pf_stencil_step before K1's march: no By, Bz, Cx
-K1_BASE_ARGS = [_i, _i] + [_vp] * 4 + [_i] * 4 + [_d] * 5 + [_vp]
-# pf_boundary_update before K2's ABC mode: no abcq, lQ1..lQ3
-K2_BASE_ARGS = [_i] + [_vp] * 9 + [_ll, _d, _d, _vp]
-# pf_tb_sweep before K3's ABC mode: no abcq
-K3_BASE_ARGS = _build.SIGNATURES["pf_tb_sweep"][:-2] + [_vp]
+# what a source must hold to be called with this tree's entries: K1's
+# march (its tiles), K2's and K3's ABC modes (their Q array)
+NEEDS = {"stencil.cu": "int Cx", "boundary.cu": "abcq", "tb.cu": "abcq"}
 # the instances both trees have: (regex, the key's groups, the group of the
 # mode left out or None, its value): K1's march (K1 and K5), (dtype, adj,
-# legs, tile width); K1e (dtype, adj, legs), stencil_step_kernel<..., false,
-# true> before the march, stencil_energy_kernel since; K2's dtype without
-# the ABC mode; (dtype, adj, legs, TB, row width, shard) of K3 and K6
-# without theirs
+# legs, tile width); K1e (dtype, adj, legs); K2's dtype without the ABC
+# mode; (dtype, adj, legs, TB, row width, shard) of K3 and K6 without
+# theirs
 K1_SASS = (r"stencil_step_kernelI([fd])([ht])Li(\d+)ELi(\d+)EE",
            (1, 2, 3, 4), None, None)
-K1E_SASS = (r"stencil_(?:step_kernel(?=I[fd][ht]Li\d+ELb0ELb1E)|"
-            r"energy_kernel)I([fd])([ht])Li(\d+)E", (1, 2, 3), None, None)
+K1E_SASS = (r"stencil_energy_kernelI([fd])([ht])Li(\d+)E", (1, 2, 3), None,
+            None)
 K2_SASS = (r"boundary_update_kernelI([fd])(Lb([01])E)?", (1,), 3, "1")
 K3_SASS = (r"tb_sweep_kernelI([fd])([ht])Li(\d+)ELi(\d+)ELi(\d+)ELb([01])E"
            r"(Lb([01])E)?", (1, 2, 3, 4, 5, 6), 8, "1")
@@ -84,19 +79,30 @@ def card_line():
                          text=True, check=True).stdout.strip(), flush=True)
 
 
-def build_lib(name: str, sources: dict, include: Path,
-              signatures: dict | None = None) -> ctypes.CDLL:
-    """nvcc of `sources` ({file name: source text}), one process a file,
-    into _build/probe/<name>/lib.so; the C entries present get their
-    argument types from `signatures` (default the kernels').  Prints the
-    build's seconds."""
+def sources(d: Path, names) -> dict:
+    """{name: text} of the files `names` in d; refuses a source that lacks
+    what this tree's entries call (`NEEDS`)."""
+    out = {}
+    for name in names:
+        out[name] = (d / name).read_text()
+        if NEEDS.get(name, "") not in out[name]:
+            raise SystemExit(f"{d / name}: built before K1's march or K2's "
+                             f"and K3's ABC modes; the probe calls only "
+                             f"this tree's entry points")
+    return out
+
+
+def build_lib(name: str, srcs: dict, include: Path) -> ctypes.CDLL:
+    """nvcc of `srcs` ({file name: source text}), one process a file, into
+    _build/probe/<name>/lib.so; the C entries present get the kernels'
+    argument types.  Prints the build's seconds."""
     t0 = time.perf_counter()
     d = PROBE / name
     d.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
     objs = []
     procs = []
-    for fname, text in sources.items():
+    for fname, text in srcs.items():
         (d / fname).write_text(text)
         objs.append(d / f"{Path(fname).stem}.o")
         procs.append(subprocess.Popen(
@@ -109,10 +115,10 @@ def build_lib(name: str, sources: dict, include: Path,
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
     subprocess.run([nvcc, *_build.ARCH, "-shared", "-o", str(d / "lib.so"),
                     *map(str, objs)], check=True)
-    print(f"[build] {name}: {', '.join(sources)} in "
+    print(f"[build] {name}: {', '.join(srcs)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     lib = ctypes.CDLL(str(d / "lib.so"))
-    for fn, args in (signatures or _build.SIGNATURES).items():
+    for fn, args in _build.SIGNATURES.items():
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = ctypes.c_int
@@ -175,8 +181,8 @@ def fmt(t: dict) -> str:
 
 class Fields:
     """Random fields of `shape` on the card, every leg of the adjacency set
-    (FCC: 12 legs, uint16; else 6, uint8); K1's, K1e's and K7's grid
-    pass's calls on them from a library (K1e and the grid pass at SHAPE)."""
+    (FCC: 12 legs, uint16; else 6, uint8); K1's and K1e's calls on them
+    from a library (K1e at SHAPE)."""
 
     def __init__(self, dtype, shape=SHAPE, fcc=True):
         g = torch.Generator(device="cuda").manual_seed(0)
@@ -190,7 +196,7 @@ class Fields:
         self.stream = torch.cuda.current_stream().cuda_stream
 
     def energy(self):
-        """Lu and K7's scratch, made at the first K1e or grid-pass call."""
+        """Lu and K7's scratch, made at the first K1e call."""
         if not hasattr(self, "Lu"):
             Nx, Ny, Nz = self.shape
             blocks = -(-(Nz - 2) // 128) * (Ny - 2) * (Nx - 2)
@@ -200,19 +206,16 @@ class Fields:
         return self.Lu, self.part
 
     def k1(self, lib, out=None):
-        """K1 of `lib` into `out` (default self.out); a library built with
-        K1's march takes the tiles `plan_k1` gives."""
+        """K1 of `lib` into `out` (default self.out) on the tiles `plan_k1`
+        gives."""
         from pffdtd_tpu_torch.kernels.stencil import plan_k1
 
         p = lambda t: t.data_ptr()
         Nx, Ny, Nz = self.shape
-        tiles = []
-        if lib.march:
-            geo = plan_k1(Nx - 2, Ny, Nz, self.u1.element_size())
-            tiles = [geo.By, geo.Bz, geo.Cx]
+        geo = plan_k1(Nx - 2, Ny, Nz, self.u1.element_size())
         args = (self.code, self.nn, p(self.u0), p(self.u1), p(self.adj),
-                p(self.out if out is None else out), *self.shape, 1, *tiles,
-                0.25, 3.0, 0.57, 1.14, 1.71, self.stream)
+                p(self.out if out is None else out), *self.shape, 1, geo.By,
+                geo.Bz, geo.Cx, 0.25, 3.0, 0.57, 1.14, 1.71, self.stream)
         return lambda: _build.check(lib.pf_stencil_step(*args), "K1")
 
     def k1e(self, lib):
@@ -223,33 +226,6 @@ class Fields:
             p(Lu), p(part), part.numel(), *self.shape, 1, 0.25, 3.0, 0.57,
             1.14, 1.71, 0.1, 1.3, self.stream), "K1e")
 
-    def grid_pass(self, lib):
-        p = lambda t: t.data_ptr()
-        Lu, part = self.energy()
-        return lambda: _build.check(lib.pf_energy_grid(
-            self.code, 12, p(self.u0), p(self.u1), p(self.adj), p(Lu),
-            p(part), part.numel(), *self.shape, 1, 0.1, 1.3, self.stream),
-            "K7 grid pass")
-
-
-def k1_sources(d: Path) -> dict:
-    """K1's sources in the directory d: stencil.cu, and energy.cu where it
-    exists."""
-    return {f: (d / f).read_text() for f in ("stencil.cu", "energy.cu")
-            if (d / f).exists()}
-
-
-def k1_lib(name: str, d: Path):
-    """d's K1 sources built into a library; `march` tells whether its K1
-    takes tiles (else it is called with the signature before K1's
-    march)."""
-    src = k1_sources(d)
-    march = "int Cx" in src["stencil.cu"]
-    lib = build_lib(name, src, d, None if march else
-                    {**_build.SIGNATURES, "pf_stencil_step": K1_BASE_ARGS})
-    lib.march = march
-    return lib
-
 
 _K1_LIBS: dict = {}
 
@@ -257,8 +233,9 @@ _K1_LIBS: dict = {}
 def _k1_libs(base: Path) -> dict:
     """Both trees' stencil.cu (with energy.cu), built once."""
     if not _K1_LIBS:
-        _K1_LIBS["base"] = k1_lib("k1_base", base)
-        _K1_LIBS["tree"] = k1_lib("k1_tree", _build.CSRC)
+        for k, d in (("base", base), ("tree", _build.CSRC)):
+            _K1_LIBS[k] = build_lib(f"k1_{k}", sources(
+                d, ("stencil.cu", "energy.cu")), d)
     return _K1_LIBS
 
 
@@ -292,17 +269,27 @@ def probe_k1e(base: Path):
                  PROBE / "k1_tree" / "stencil.o")
     for dt in (torch.float32, torch.float64):
         f = Fields(dt)
+        Lu0 = f.energy()[0].clone()
+        outs = {}
+        for k, lib in libs.items():     # from the same L u^{n-1}
+            f.Lu.copy_(Lu0)
+            f.part.zero_()
+            f.k1e(lib)()
+            outs[k] = (f.out.clone(), f.Lu.clone(), f.part.clone())
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(outs["base"],
+                                                     outs["tree"]))
+        del outs, Lu0
         calls = {k: f.k1e(lib) for k, lib in libs.items()}
-        print(f"[base] K1e {dt} FCC {SHAPE}: "
-              + fmt(turns(calls, IN_TURNS)), flush=True)
+        print(f"[base] K1e {dt} FCC {SHAPE}: u^(n+1), L u^n and sums bitwise "
+              f"equal {same}; " + fmt(turns(calls, IN_TURNS)), flush=True)
         del f
 
 
 def _headline_engine(dtype, open_top=False, **kw):
-    from pffdtd_tpu_torch.bench import DEF11
     from pffdtd_tpu_torch.engine.torch_engine import TorchEngine
-    from pffdtd_tpu_torch.scene import (fold_fcc_sim, rotate_sim, sort_sim,
-                                        synthetic_box_sim)
+    from pffdtd_tpu_torch.scene import (DEF11, fold_fcc_sim, rotate_sim,
+                                        sort_sim, synthetic_box_sim)
 
     sim = synthetic_box_sim(36.0, 28.0, 23.0, h=0.046, Nt=8, fcc=True,
                             lossy=True, insig_type="impulse", DEF=DEF11,
@@ -334,27 +321,16 @@ class _K2State:
         x, vh, gh = bufs or (self.un, self.vh, self.gh)
         args = [0 if e.dtype == torch.float32 else 1, p(x), p(self.u0),
                 p(e.bnl), p(e.ssaf), p(e.mat), p(e.coef_table), p(e.beta),
-                p(vh), p(gh), e.data.Nbl, e.data.sc.l, e.data.sc.lo2]
-        if lib.abc:
-            args += [p(e.abcq) if abc_mode else None,
-                     *abc_lq(e.data.sc, e.dtype)]
+                p(vh), p(gh), e.data.Nbl, e.data.sc.l, e.data.sc.lo2,
+                p(e.abcq) if abc_mode else None, *abc_lq(e.data.sc, e.dtype)]
         stream = torch.cuda.current_stream().cuda_stream
         return lambda: _build.check(lib.pf_boundary_update(*args, stream),
                                     "K2")
 
 
-def _k2_lib(name, d: Path):
-    src = (d / "boundary.cu").read_text()
-    abc = "abcq" in src
-    sig = None if abc else {"pf_boundary_update": K2_BASE_ARGS}
-    lib = build_lib(name, {"boundary.cu": src}, d, sig)
-    lib.abc = abc
-    return lib
-
-
 def probe_k2(base: Path):
-    libs = {"base": _k2_lib("k2_base", base),
-            "tree": _k2_lib("k2_tree", _build.CSRC)}
+    libs = {k: build_lib(f"k2_{k}", sources(d, ("boundary.cu",)), d)
+            for k, d in (("base", base), ("tree", _build.CSRC))}
     compare_sass("K2 without the ABC mode (dtype)", K2_SASS,
                  PROBE / "k2_base" / "boundary.o",
                  PROBE / "k2_tree" / "boundary.o")
@@ -415,26 +391,13 @@ class _K3State:
         o, sts, taps = outs
         args = _launch_args(st, *self.ins, *o, *self.sts, *sts, self.sig,
                             taps)
-        if not lib.abc:
-            args = args[:-1]
         stream = torch.cuda.current_stream().cuda_stream
         return lambda: _build.check(lib.pf_tb_sweep(*args, stream), "K3")
 
 
-def _k3_lib(name, d: Path):
-    src = (d / "tb.cu").read_text()
-    abc = "abcq" in src
-    sig = None if abc else {"pf_tb_sweep": K3_BASE_ARGS}
-    lib = build_lib(name, {"tb.cu": src,
-                           "tb_shard.cu": (d / "tb_shard.cu").read_text()},
-                    d, sig)
-    lib.abc = abc
-    return lib
-
-
 def probe_k3(base: Path):
-    libs = {"base": _k3_lib("k3_base", base),
-            "tree": _k3_lib("k3_tree", _build.CSRC)}
+    libs = {k: build_lib(f"k3_{k}", sources(d, ("tb.cu", "tb_shard.cu")), d)
+            for k, d in (("base", base), ("tree", _build.CSRC))}
     for f, what in (("tb.o", "K3"), ("tb_shard.o", "K6")):
         compare_sass(f"{what} without the ABC mode (dtype, adj, legs, TB, "
                      f"row width, shard)", K3_SASS, PROBE / "k3_base" / f,

@@ -1,7 +1,7 @@
 """Each axis of a scene on z, measured on the card: the data behind
 `scene.orientation_scores` (the counterpart of probes/mv_orient.py).
 
-    python -m pffdtd_tpu_torch.kernels.orient_probe [--scenes a,b]
+    python -m pffdtd_tpu_torch.probes.orient [--scenes a,b]
         [--nt 128] [--out FILE]
 
 Scenes (`SCENES`), each built once unrotated:
@@ -52,7 +52,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pffdtd_tpu_torch.bench import DEF11, headline_rxyz, rel_err
+from pffdtd_tpu_torch.bench import rel_err
 from pffdtd_tpu_torch.consts import SimConsts
 from pffdtd_tpu_torch.engine.torch_engine import TorchEngine
 from pffdtd_tpu_torch.io.simdata import MMb
@@ -61,11 +61,12 @@ from pffdtd_tpu_torch.kernels.boundary import boundary_update
 from pffdtd_tpu_torch.kernels.stencil import stencil_step
 from pffdtd_tpu_torch.kernels.stream import time_ms
 from pffdtd_tpu_torch.voxelizer.vox import NEIGHBOR_VECTORS
-from pffdtd_tpu_torch.scene import (LANES, boundary_face_counts,
-                                    fold_fcc_sim, make_sloped_room,
-                                    mats_from_DEF_list, orientation_scores,
-                                    rotate_sim, rotation_of, sort_sim,
-                                    synthetic_box_sim, tr_for)
+from pffdtd_tpu_torch.scene import (DEF11, LANES, boundary_face_counts,
+                                    fold_fcc_sim, headline_rxyz,
+                                    make_sloped_room, mats_from_DEF_list,
+                                    orientation_scores, rotate_sim,
+                                    rotation_of, sort_sim, synthetic_box_sim,
+                                    tr_for)
 
 SEED = 0
 REPS, WINDOWS, RUNS = 20, 3, 3
@@ -254,7 +255,8 @@ def main(argv=None):
     if not set(names) <= set(SCENES):
         raise SystemExit(f"--scenes: of {sorted(SCENES)}")
     if not torch.cuda.is_available():
-        raise SystemExit("orient_probe measures on an NVIDIA card only")
+        raise SystemExit("the orientation probe measures on an NVIDIA card "
+                         "only")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()

@@ -39,6 +39,20 @@ from pffdtd_tpu_torch.voxelizer.vox import CART_VECTORS, FCC_VECTORS
 DEMO_DEF = np.array([[2.0, 5.0, 30.0],
                      [1.0, 10.0, 300.0],
                      [0.5, 8.0, 3000.0]])
+# the 11-branch material of the root bench.py:60-63 (11 RLC branches a
+# material, the reference's benchmark condition)
+DEF11 = np.array([[d, e, f] for d, e, f in zip(
+    np.geomspace(0.4, 40.0, 11),
+    np.geomspace(2.0, 80.0, 11),
+    np.geomspace(20.0, 2.0e5, 11))])
+# the headline box's receivers, offsets from its source (1.6 and 2.1 m)
+HEADLINE_RX = np.array([[1.3, -0.8, 0.6], [-1.3, 1.4, -0.9]])
+
+
+def headline_rxyz(Lx, Ly, Lz):
+    """Receivers 1.6 and 2.1 m from a box's source (at 0.45, 0.55, 0.5 of
+    it, where `synthetic_box_sim` puts it)."""
+    return np.array([0.45 * Lx, 0.55 * Ly, 0.5 * Lz]) + HEADLINE_RX
 
 
 def mats_from_DEF_list(DEF_list) -> MatsData:
@@ -266,7 +280,7 @@ def boundary_face_counts(vox) -> np.ndarray:
 
 # The port's step route on the H100, ns a step (`orientation_scores`),
 # fitted to the best CUDA-event windows of K1 and K2 in
-# `python -m pffdtd_tpu_torch.kernels.orient_probe` (NVIDIA H100 80GB HBM3,
+# `python -m pffdtd_tpu_torch.probes.orient` (NVIDIA H100 80GB HBM3,
 # 700.00 W; PERF.md): K1 a point of the interior, by stencil (7-point
 # Cartesian, 13-point FCC), and a lane K1's blocks leave idle past the end
 # of a z-run on Cartesian grids (on FCC grids the idle lanes measured

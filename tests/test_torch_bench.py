@@ -33,6 +33,7 @@ import torch
 from pffdtd_tpu import demo, prep
 
 from pffdtd_tpu_torch import bench
+from pffdtd_tpu_torch.scene import HEADLINE_RX, headline_rxyz
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parent.parent
@@ -133,12 +134,12 @@ def test_headline_receivers_are_the_one_change():
     1.6 and 2.1 m from the source."""
     L, h = (36.0, 28.0, 23.0), 0.9
     a = bench.synthetic_scene(True, True, *L, h, 8,
-                              rxyz=bench.headline_rxyz(*L))
+                              rxyz=headline_rxyz(*L))
     b = bench.synthetic_scene(True, True, *L, h, 8)
     for k in ("bn_ixyz", "adj_bn", "mat_bn", "saf_bn"):
         np.testing.assert_array_equal(getattr(a.vox, k), getattr(b.vox, k))
     np.testing.assert_array_equal(a.comms.in_ixyz, b.comms.in_ixyz)
-    d = np.linalg.norm(bench.HEADLINE_RX, axis=1)
+    d = np.linalg.norm(HEADLINE_RX, axis=1)
     np.testing.assert_allclose(d, [1.64, 2.11], atol=0.005)
 
 

@@ -17,17 +17,14 @@ routes to the single-device plain path in fp64.  The K3/K6 sweeps run at
 TB = 2, 3, 4, 8 (K6: 2, 3, 5), on planned chunks and on 7-row ones (a
 partial last chunk, and a source on a lossy node), with sources and
 receivers on chunk and tile edges; K4 on sizes that leave a tail after
-whole float4s and after whole blocks.  K7's two passes (the energy
-terms) from a random state: L u^n at the bounds above, the energies
-<= 1e-12 in fp64 and, in fp32, no further from the fp64 value than the
-fp32 plain passes; K1e (K1's energy mode: the step and K7's grid pass in
-one launch) bitwise equal to its plain version (u^{n+1}, L u^n) and its
-partial sums bitwise equal to K7's grid pass, the energy route (K1e, K2,
-K7's boundary pass) bitwise equal to the two-pass route composed from K7's
-grid pass, K1, K2 and K7's boundary pass, and its resume bitwise equal to
-the uninterrupted run; K8 (the modal recurrence) <= 1e-12 of its numpy loop
-and of its design's plain version (`modal_split_plain`), its loop modes
-bitwise equal to the numpy loop.
+whole float4s and after whole blocks.  K1e (K1's energy mode: the step
+and K7's grid half in one launch), then K7's boundary pass (the energy
+terms), from a random state: u^{n+1} and L u^n bitwise equal to the plain
+versions, the energies <= 1e-12 in fp64 and, in fp32, no further from the
+fp64 value than the fp32 plain versions; the energy route's resume
+bitwise equal to the uninterrupted run; K8 (the modal recurrence)
+<= 1e-12 of its numpy loop and of its design's plain version
+(`modal_split_plain`), its loop modes bitwise equal to the numpy loop.
 K1 and K5 bitwise equal to their plain versions on random fields and a
 random adjacency (air and masked points) of ragged grids: Nx-2, Ny-2 and
 Nz-2 no multiples of the tiles and chunks (planned, and forced to both
@@ -41,9 +38,10 @@ on both slabs of a D = 2 split), the open-top box's kernel path within
 receivers bitwise equal to its step route's, and its energy route's
 energies within 1e-12 of the plain path's (the balance is the reference's,
 which does not close there).
-Beside the kernels: the energy route (K1 + K2 + K7) against the plain
-path, a resume at a step that is no multiple of TB, and the modal filter
-on the card against its numpy loop, <= 1e-12; the step, tb, pair and
+Beside the kernels: the energy route (K1e, K2 and K7's boundary pass once
+a step, K1 never) against the plain path, a resume at a step that is no
+multiple of TB, and the modal filter on the card against its numpy loop,
+<= 1e-12; the step, tb, pair and
 energy routes with fp32_eps = 1e-3 in fp64 against the plain path with the
 same shift, <= 1e-12; the air / boundary split's probe (K2 timed with CUDA
 events) in a verbose chunked run, its results bitwise a quiet run's; the
@@ -72,11 +70,8 @@ from pffdtd_tpu_torch.kernels import tb as ktb
 from pffdtd_tpu_torch.io.simdata import MMb
 from pffdtd_tpu_torch.kernels.boundary import (boundary_update,
                                                boundary_update_plain)
-from pffdtd_tpu_torch.kernels.energy import (GRID_THREADS, MID_BLOCKS,
-                                             energy_boundary_pass,
+from pffdtd_tpu_torch.kernels.energy import (energy_boundary_pass,
                                              energy_boundary_pass_plain,
-                                             energy_grid_pass,
-                                             energy_grid_pass_plain,
                                              scratch_size)
 from pffdtd_tpu_torch.kernels.modal import modal_scan
 from pffdtd_tpu_torch.kernels.stencil import (stencil_energy_step,
@@ -576,10 +571,17 @@ def test_sharded_routes_match_plain_path_fp64(cuda, name, backend):
 # ---- energy route, resume and the modal filter on the card
 @pytest.mark.parametrize("name", list(CASES))
 def test_energy_route_on_card(cuda, name):
-    """K1 + K2 with energy on: the balance, the energies against the plain
-    path on the card, the receivers bitwise equal to the energy-off run."""
+    """The energy route: K1e, K2 (on lossy scenes) and K7's boundary pass
+    once a step and K1 never; the balance, the energies against the plain
+    path on the card, the receivers bitwise equal to the energy-off
+    run."""
     k = _engine(name, np.float64, energy_on=True)
+    wrappers = (stencil_energy_step, stencil_step, boundary_update,
+                energy_boundary_pass)
+    n = [w.launches for w in wrappers]
     u = k.run(verbose=False)
+    assert [w.launches - a for w, a in zip(wrappers, n)] == [
+        k.Nt, 0, k.Nt if k.data.Nbl else 0, k.Nt]
     p = _engine(name, np.float64, energy_on=True, use_kernels=False)
     p.run(verbose=False)
     assert np.abs(k.energy_balance()).max() < 1e-10 and k.E_lost[-1] > 0
@@ -603,7 +605,7 @@ def test_resume_off_a_sweep_boundary_on_card(cuda, kw, tmp_path):
 
 
 def _energy_inputs(eng, cuda, dtype, seed):
-    """A random state for K7's passes (L u^{n-1} with zero halos, as the
+    """A random state for K1e and K7 (L u^{n-1} with zero halos, as the
     engine keeps it) and fresh outputs for a kernel and a plain call."""
     d = eng.data
     rng = np.random.default_rng(seed)
@@ -625,124 +627,73 @@ def _energy_inputs(eng, cuda, dtype, seed):
     return (u0, u1, unew, vh, vh_prev, gh_prev, sig), outs
 
 
-def _energy_passes(fns, es, ins, outs):
-    """Both passes from the inputs into fresh outputs: (Lu, H, dE_lost,
-    dE_in)."""
+KERNELS = (stencil_energy_step, energy_boundary_pass)
+PLAIN = (stencil_energy_step_plain, energy_boundary_pass_plain)
+
+
+def _energy_step(fns, eng, es, ins, outs):
+    """K1e, then K7's boundary pass (fns: the kernels or their plain
+    versions), from the inputs into fresh outputs: (u^{n+1}, L u^n, H,
+    dE_lost, dE_in)."""
     u0, u1, unew, vh, vh_prev, gh_prev, sig = ins
     Lu, part, H, E_lost, E_in = outs()
-    fns[0](es, u0, u1, Lu, part)
+    out = torch.zeros_like(u0)
+    fns[0](u0, u1, eng.adj, out, Lu, part, eng.data.grid, eng.data.sc, es)
     fns[1](es, unew, u0, vh, vh_prev, gh_prev, sig, part, H, E_lost, E_in)
-    return Lu, H, E_lost, E_in
+    torch.cuda.synchronize()
+    return out, Lu, H, E_lost, E_in
+
+
+def _assert_energies(k, p, eng, ins, outs, fp32_terms=3):
+    """The energies k (the kernels') against p (the plain versions'):
+    <= 1e-12 in fp64; in fp32 the first `fp32_terms` no further from the
+    fp64 value of the same terms (the fp64 plain versions on the same
+    inputs, with the fp32 run's constants) than the fp32 plain versions
+    are (K1e and K7 sum in fp64)."""
+    if eng.dtype == torch.float64:
+        for a, b in zip(k, p):
+            assert _rel(a, b) <= 1e-12
+        return
+    es = eng.energy_scene
+    es64 = dataclasses.replace(es, ssaf=es.ssaf.double(),
+                               def_table=es.def_table.double())
+    r = _energy_step(PLAIN, eng, es64, tuple(x.double() for x in ins),
+                     lambda: tuple(x.double() for x in outs()))[2:]
+    for a, b, ref in list(zip(k, p, r))[:fp32_terms]:
+        assert abs(float(a) - float(ref)) <= abs(float(b) - float(ref))
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("name", list(CASES))
 def test_energy_passes_match_plain(cuda, name, dtype):
-    """K7's two passes vs their plain versions from a random state.  L u^n:
-    <= 1e-6 (fp32), 1e-12 (fp64).  H, dE_lost, dE_in: <= 1e-12 in fp64; in
-    fp32 K7 (fp64 sums) is no further from the fp64 value of the same
-    terms (the fp64 plain passes on the same inputs, with the fp32 run's
-    constants) than the fp32 plain passes are."""
+    """K7's boundary pass, on the scratch K1e filled, vs the plain versions
+    from a random state: H, dE_lost and dE_in as `_assert_energies` holds
+    them."""
     eng = _engine(name, dtype, energy_on=True)
-    es = eng.energy_scene
     ins, outs = _energy_inputs(eng, cuda, dtype, seed=7)
-    n = (energy_grid_pass.launches, energy_boundary_pass.launches)
-    k = _energy_passes((energy_grid_pass, energy_boundary_pass), es, ins,
-                       outs)
-    plain = (energy_grid_pass_plain, energy_boundary_pass_plain)
-    p = _energy_passes(plain, es, ins, outs)
-    torch.cuda.synchronize()
-    assert (energy_grid_pass.launches, energy_boundary_pass.launches) == (
-        n[0] + 1, n[1] + 1)
-    assert _rel(k[0], p[0]) <= TOL[dtype]
-    if dtype == np.float64:
-        for a, b in zip(k[1:], p[1:]):
-            assert _rel(a, b) <= 1e-12
-        return
-    es64 = dataclasses.replace(es, ssaf=es.ssaf.double(),
-                               def_table=es.def_table.double())
-    ins64 = tuple(x.double() for x in ins)
-
-    def outs64():
-        return tuple(x.double() for x in outs())
-
-    r = _energy_passes(plain, es64, ins64, outs64)
-    for a, b, ref in zip(k[1:], p[1:], r[1:]):
-        assert abs(float(a) - float(ref)) <= abs(float(b) - float(ref))
+    n = energy_boundary_pass.launches
+    k = _energy_step(KERNELS, eng, eng.energy_scene, ins, outs)
+    p = _energy_step(PLAIN, eng, eng.energy_scene, ins, outs)
+    assert energy_boundary_pass.launches == n + 1
+    _assert_energies(k[2:], p[2:], eng, ins, outs)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("name", list(CASES))
 def test_energy_step_matches_plain(cuda, name, dtype):
     """K1e vs its plain version from a random state: u^{n+1} and L u^n
-    bitwise; its scratch bitwise equal to K7's grid pass's; H, dE_lost and
-    dE_in after K7's boundary pass as in test_energy_passes_match_plain."""
+    bitwise; after K7's boundary pass H, dE_lost and dE_in <= 1e-12 of the
+    plain versions' in fp64, and in fp32 H, the one that reads K1e's sums,
+    no further from its fp64 value than the fp32 plain versions'."""
     eng = _engine(name, dtype, energy_on=True)
-    d, es = eng.data, eng.energy_scene
     ins, outs = _energy_inputs(eng, cuda, dtype, seed=11)
-    u0, u1, unew, vh, vh_prev, gh_prev, sig = ins
-    res = []
-    for fn in (stencil_energy_step, stencil_energy_step_plain):
-        Lu, part, H, E_lost, E_in = outs()
-        out = torch.zeros_like(u0)
-        n = stencil_energy_step.launches
-        fn(u0, u1, eng.adj, out, Lu, part, d.grid, d.sc, es)
-        bp = (energy_boundary_pass if fn is stencil_energy_step
-              else energy_boundary_pass_plain)
-        bp(es, unew, u0, vh, vh_prev, gh_prev, sig, part, H, E_lost, E_in)
-        torch.cuda.synchronize()
-        assert stencil_energy_step.launches == n + (fn is stencil_energy_step)
-        res.append((out, Lu, part, H, E_lost, E_in))
-    (ok, Lk, pk, *ek), (op, Lp, _, *ep) = res
-    assert torch.equal(ok[1:-1, 1:-1, 1:-1], op[1:-1, 1:-1, 1:-1])
-    assert torch.equal(Lk, Lp)
-    Lg, pg = outs()[:2]
-    energy_grid_pass(es, u0, u1, Lg, pg)
-    torch.cuda.synchronize()
-    Nx, Ny, Nz = d.grid.shape   # the grid sums, then their middle stage's
-    n = 2 * (-(-(Nz - 2) // GRID_THREADS) * (Ny - 2) * (Nx - 2) + MID_BLOCKS)
-    assert torch.equal(Lg, Lk) and torch.equal(pg[:n], pk[:n])
-    if dtype == np.float64:
-        for a, b in zip(ek, ep):
-            assert _rel(a, b) <= 1e-12
-
-
-def _two_pass_step_energy(eng, state, sig_n, out_row, en):
-    """The energy step as K7's grid pass, K1 + K2 + sources and K7's
-    boundary pass (the kernels' wrappers): the route before K1e."""
-    es = eng.energy_scene
-    u0, u1, _, vh, gh = state
-    energy_grid_pass(es, u0, u1, en.Lu, en.part)
-    en.vh_prev.copy_(vh)
-    en.gh_prev.copy_(gh)
-    eng.step(state, sig_n, out_row)
-    H = torch.empty((), dtype=eng.dtype, device=eng.device)
-    return energy_boundary_pass(es, state[1], u0, state[3], en.vh_prev,
-                                en.gh_prev, sig_n, en.part, H, en.E_lost,
-                                en.E_in)
-
-
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("name", list(CASES))
-def test_energy_route_equals_two_pass_route(cuda, name, dtype):
-    """The engine's energy route launches K1e, K2 and K7's boundary pass
-    once a step and K1 and K7's grid pass never; receivers, H, E_lost,
-    E_in and the final fields are bitwise equal to the two-pass route."""
-    k = _engine(name, dtype, energy_on=True)
-    wrappers = (stencil_energy_step, stencil_step, boundary_update,
-                energy_grid_pass, energy_boundary_pass)
-    n = [w.launches for w in wrappers]
-    k.run(verbose=False)
-    got = [w.launches - a for w, a in zip(wrappers, n)]
-    nbl = k.Nt if k.data.Nbl else 0
-    assert got == [k.Nt, 0, nbl, 0, k.Nt]
-    t = _engine(name, dtype, energy_on=True)
-    t.step_energy = lambda *a: _two_pass_step_energy(t, *a)
-    t.run(verbose=False)
-    for a in ("u_out", "H_tot", "E_lost", "E_in"):
-        assert np.array_equal(getattr(k, a), getattr(t, a)), a
-    for a, b in zip(k.state, t.state):
-        assert torch.equal(a, b)
+    n = stencil_energy_step.launches
+    k = _energy_step(KERNELS, eng, eng.energy_scene, ins, outs)
+    p = _energy_step(PLAIN, eng, eng.energy_scene, ins, outs)
+    assert stencil_energy_step.launches == n + 1
+    inner = (slice(1, -1),) * 3
+    assert torch.equal(k[0][inner], p[0][inner]) and torch.equal(k[1], p[1])
+    _assert_energies(k[2:], p[2:], eng, ins, outs, fp32_terms=1)
 
 
 def test_energy_resume_on_card(cuda, tmp_path):

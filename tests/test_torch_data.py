@@ -40,10 +40,6 @@ from pffdtd_tpu_torch.engine.data import EngineData, abc_q
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parent.parent
 
-DEF11 = np.array([[d, e, f] for d, e, f in zip(
-    np.geomspace(0.4, 40.0, 11), np.geomspace(2.0, 80.0, 11),
-    np.geomspace(20.0, 2.0e5, 11))])
-
 
 def _assert_dc_equal(a, b):
     """Dataclasses with the same field names hold equal values."""
@@ -67,7 +63,7 @@ def test_scheme_coeffs_equal(fcc, eps):
 
 
 def test_mat_coeffs_equal():
-    defs = [demo.DEMO_DEF, DEF11]
+    defs = [demo.DEMO_DEF, scene.DEF11]
     a = coeffs.MatCoeffs.from_mats(scene.mats_from_DEF_list(defs), Ts=1e-4)
     b = jcoeffs.MatCoeffs.from_mats(jmats(defs), Ts=1e-4)
     _assert_dc_equal(a, b)
@@ -87,7 +83,7 @@ SCENES = {
 def _both_scenes(name):
     dims, h, fcc, tr, fold = SCENES[name]
     kw = dict(h=h, Nt=20, fcc=fcc, lossy=True, insig_type="hann10",
-              diff_source=False, DEF=DEF11)
+              diff_source=False, DEF=scene.DEF11)
     out = []
     for mod, pr in ((scene, scene), (demo, prep)):
         sim = mod.synthetic_box_sim(*dims, **kw)
@@ -156,9 +152,6 @@ import pffdtd_tpu_torch.engine.energy
 import pffdtd_tpu_torch.engine.torch_engine
 import pffdtd_tpu_torch.viz
 import pffdtd_tpu_torch.io.h5
-import pffdtd_tpu_torch.kernels.k1e_probe
-import pffdtd_tpu_torch.kernels.orient_probe
-import pffdtd_tpu_torch.kernels.probe
 import pffdtd_tpu_torch.kernels.stream
 import pffdtd_tpu_torch.kernels.tb
 import pffdtd_tpu_torch.parallel.partition
@@ -170,6 +163,8 @@ import pffdtd_tpu_torch.geometry.scene_io
 import pffdtd_tpu_torch.io
 import pffdtd_tpu_torch.materials
 import pffdtd_tpu_torch.prep
+import pffdtd_tpu_torch.probes.kernel_ab
+import pffdtd_tpu_torch.probes.orient
 import pffdtd_tpu_torch.scene_setup
 import pffdtd_tpu_torch.voxelizer.native
 import pffdtd_tpu_torch.examples
@@ -320,7 +315,7 @@ def test_comms_copy_equal(sig, fcc):
 
 def test_h5_copy_reads_and_writes_like_the_original(tmp_path):
     sim = demo.synthetic_box_sim(1.2, 1.0, 0.9, h=0.1, Nt=6, fcc=True,
-                                 insig_type="hann10", DEF=DEF11)
+                                 insig_type="hann10", DEF=scene.DEF11)
     save_sim_data(sim, tmp_path)
     for name in ("consts", "vox", "comms", "mats"):
         a = getattr(h5, "read_" + name)(tmp_path)

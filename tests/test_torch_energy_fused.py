@@ -1,5 +1,5 @@
 """K1's energy mode (K1e, `stencil_energy_step`) on the CPU: its plain
-version and the engine's energy route against K7's two passes and JAX.
+version and the engine's energy route against K7's plain passes and JAX.
 
 - `stencil_energy_step_plain` (and the wrapper on CPU tensors) bit for bit
   equal to `energy_grid_pass_plain` followed by `stencil_step_plain`, from
@@ -11,12 +11,11 @@ version and the engine's energy route against K7's two passes and JAX.
   L u^n, the receivers, H, E_lost and E_in <= 1e-12 of their magnitude in
   fp64, <= 1e-5 in fp32 (the bar of tests/test_torch_energy_kernel.py);
 - whole runs of the engine's energy route bit for bit equal to the
-  two-pass route (K7's grid pass, the step, K7's boundary pass) composed
-  from the plain wrappers, and the route calling K1e once a step and K1
+  two-pass route (K7's plain grid half, the step, K7's plain boundary
+  pass), and the route calling K1e once a step and K1
   never;
 - the wrapper refusing other dtypes, shapes, devices, a scene of another
-  grid or adjacency, a short scratch and `out` aliasing L u;
-- `kernels.k1e_probe`'s source edits still matching `csrc/stencil.cu`.
+  grid or adjacency, a short scratch and `out` aliasing L u.
 K1e itself runs on the card: tests/test_torch_cuda.py.
 """
 
@@ -35,7 +34,7 @@ from pffdtd_tpu.engine.jax_engine import build_step
 from pffdtd_tpu_torch import convert
 from pffdtd_tpu_torch.engine import torch_engine
 from pffdtd_tpu_torch.engine.torch_engine import TorchEngine
-from pffdtd_tpu_torch.kernels import k1e_probe, stencil
+from pffdtd_tpu_torch.kernels import stencil
 from pffdtd_tpu_torch.kernels.energy import (energy_boundary_pass_plain,
                                              energy_grid_pass_plain,
                                              scratch_size)
@@ -204,23 +203,6 @@ def test_energy_route_equals_two_pass_route(monkeypatch, scene, dtype,
     assert np.abs(e.u_out).max() > 0 and e.E_in[-1] > 0
     for a, b in zip(e.state, t.state):
         assert torch.equal(a, b)
-
-
-def test_probe_edits_apply_to_the_source(monkeypatch):
-    """k1e_probe's variants are edits of csrc/stencil.cu that must each
-    match once: the late L u load and the block sum left out; without a
-    card the probe refuses to run."""
-    src = (k1e_probe._build.CSRC / "stencil.cu").read_text()
-    late = k1e_probe._late(src)
-    assert k1e_probe.EARLY not in late and "e.Lu[c];" in late
-    bare = k1e_probe._edit(late, [(k1e_probe.BLOCK_SUM,
-                                   k1e_probe.NO_BLOCK_SUM)])
-    assert "block_sums<2" not in bare
-    with pytest.raises(RuntimeError, match="update the probe"):
-        k1e_probe._late(late)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(SystemExit, match="NVIDIA card only"):
-        k1e_probe.main([])
 
 
 def _args(eng):

@@ -37,10 +37,10 @@ from pffdtd_tpu_torch.engine.numpy_ref import NumpyEngine
 from pffdtd_tpu_torch.engine.torch_engine import TorchEngine
 from pffdtd_tpu_torch.kernels.energy import (energy_boundary_pass,
                                              energy_boundary_pass_plain,
-                                             energy_grid_pass,
                                              energy_grid_pass_plain,
                                              scratch_size)
 from pffdtd_tpu_torch.kernels.modal import modal_scan, modal_scan_plain
+from pffdtd_tpu_torch.kernels.stencil import stencil_energy_step
 from pffdtd_tpu_torch.scene import fold_fcc_sim, synthetic_box_sim
 
 torch.set_num_threads(2)
@@ -136,10 +136,12 @@ def test_engine_energy_matches_oracle(scene):
 
 
 def _grid_args(eng):
-    d = eng.data
+    """K1e's arguments (`stencil_energy_step`, whose grid half runs K7's
+    checks): u0, u1, adj, out, Lu, part, grid, sc, es."""
+    d, es = eng.data, eng.energy_scene
     z = lambda: torch.zeros(d.grid.shape, dtype=eng.dtype)
     part = torch.zeros(scratch_size(d.grid, d.Nbl), dtype=torch.float64)
-    return [eng.energy_scene, z(), z(), z(), part]
+    return [z(), z(), es.adj, z(), z(), part, d.grid, d.sc, es]
 
 
 def _boundary_args(eng):
@@ -156,28 +158,28 @@ def test_energy_wrappers_refuse_bad_arguments():
     eng = TorchEngine(**_kw(sim), dtype=np.float32, device="cpu",
                       energy_on=True)
     g = _grid_args(eng)
-    energy_grid_pass(*g)                          # well-formed: runs
+    stencil_energy_step(*g)                       # well-formed: runs
     bad = list(g)
-    bad[1] = g[1].double()                        # u0 in another dtype
+    bad[0] = g[0].double()                        # u0 in another dtype
     with pytest.raises(TypeError, match="u0"):
-        energy_grid_pass(*bad)
+        stencil_energy_step(*bad)
     bad = list(g)
-    bad[3] = g[3][:, :, :-1].contiguous()         # Lu of another shape
+    bad[4] = g[4][:, :, :-1].contiguous()         # Lu of another shape
     with pytest.raises(ValueError, match="Lu"):
-        energy_grid_pass(*bad)
+        stencil_energy_step(*bad)
     bad = list(g)
-    bad[4] = g[4][:-1]                            # scratch too small
+    bad[5] = g[5][:-1]                            # scratch too small
     with pytest.raises(ValueError, match="part"):
-        energy_grid_pass(*bad)
-    for alias in (1, 2):                          # Lu is u^{n-1} or u^n
+        stencil_energy_step(*bad)
+    for alias in (0, 1):                          # Lu is u^{n-1} or u^n
         bad = list(g)
-        bad[3] = g[alias]
+        bad[4] = g[alias]
         with pytest.raises(ValueError, match="distinct"):
-            energy_grid_pass(*bad)
+            stencil_energy_step(*bad)
     bad = list(g)
-    bad[2] = g[2].to("meta")                      # one tensor elsewhere
+    bad[1] = g[1].to("meta")                      # one tensor elsewhere
     with pytest.raises(ValueError, match="one device"):
-        energy_grid_pass(*bad)
+        stencil_energy_step(*bad)
     b = _boundary_args(eng)
     energy_boundary_pass(*b)
     bad = list(b)
@@ -206,9 +208,10 @@ def test_energy_wrappers_refuse_a_device_neither_cpu_nor_cuda():
     es = eng.energy_scene
     meta = dataclasses.replace(es, **{k: getattr(es, k).to("meta") for k in (
         "adj", "ssaf", "mat", "def_table", "in_ixyz")})
-    g = [meta] + [t.to("meta") for t in _grid_args(eng)[1:]]
+    g = [t.to("meta") for t in _grid_args(eng)[:6]] + [eng.data.grid,
+                                                        eng.data.sc, meta]
     with pytest.raises(ValueError, match="cpu or cuda only"):
-        energy_grid_pass(*g)
+        stencil_energy_step(*g)
     b = [meta] + [t.to("meta") for t in _boundary_args(eng)[1:]]
     with pytest.raises(ValueError, match="cpu or cuda only"):
         energy_boundary_pass(*b)

@@ -18,13 +18,11 @@ test_torch_open_top_routes.py).  Held here, fp64, seeded numpy:
 - a closed box keeps no flagged node, and K2's plain update there is the
   parent's, its branch sum now in the kernel's order: bitwise that, within
   a rounding of torch.sum's order, and an all-zero Q changes no bit;
-- `kernels.probe` (K1, K1e, K2 and K3 against another checkout's, on the
-  card) takes the K2 and K3 entries before their ABC modes as the new ones
-  less their ABC arguments, and refuses to run without a card or for a
-  kernel it does not know.
+- `probes.kernel_ab` (K1, K1e, K2 and K3 against another checkout's, on
+  the card) refuses a base older than K1's march or the ABC modes, a
+  kernel it does not know, and to run without a card.
 """
 
-import ctypes
 import dataclasses
 
 import numpy as np
@@ -47,14 +45,10 @@ from pffdtd_tpu_torch.io.simdata import MMb
 from pffdtd_tpu_torch.kernels.boundary import boundary_update, \
     boundary_update_plain
 from pffdtd_tpu_torch.parallel.sharded_engine import make_sharded_engine
-from pffdtd_tpu_torch.scene import (fold_fcc_sim, pad_x_interior, rotate_sim,
-                                    sort_sim, synthetic_box_sim)
+from pffdtd_tpu_torch.scene import (DEF11, fold_fcc_sim, pad_x_interior,
+                                    rotate_sim, sort_sim, synthetic_box_sim)
 
 torch.set_num_threads(2)
-
-DEF11 = np.array([[d, e, f] for d, e, f in zip(
-    np.geomspace(0.4, 40.0, 11), np.geomspace(2.0, 80.0, 11),
-    np.geomspace(20.0, 2.0e5, 11))])
 
 # bench.py's synthetic_box_sim arguments, item by item, at a reduced h
 BENCH_ARGS = {
@@ -299,22 +293,23 @@ def test_closed_box_keeps_k2_as_it_was(dtype):
         assert _rel(a.numpy(), b.numpy()) <= tol
 
 
-def test_probe_refuses_without_a_card(monkeypatch):
-    from pffdtd_tpu_torch.kernels import _build, probe
+def test_probe_refuses_without_a_card(monkeypatch, tmp_path):
+    """probes.kernel_ab knows K1, K1e, K2 and K3; it refuses a kernel it
+    does not know, a base whose K1 has no march or whose K2 or K3 has no
+    ABC mode, and to run without a card."""
+    from pffdtd_tpu_torch.kernels import _build
+    from pffdtd_tpu_torch.probes import kernel_ab
 
-    # the entries before the ABC modes: K2's without abcq and lQ1..lQ3,
-    # K3's without abcq (the argument before the stream)
-    new = _build.SIGNATURES["pf_boundary_update"]
-    assert list(new[:13]) + [new[-1]] == probe.K2_BASE_ARGS
-    vp, i, ll, d = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                    ctypes.c_double)
-    k3 = ([i] * 3 + [vp] * 5 + [i] * 8 + [d] * 7 + [vp] * 4 + [ll] + [vp] * 9
-          + [ll, vp, vp, i, vp, vp, i, i])
-    assert probe.K3_BASE_ARGS == k3 + [vp]
-    assert _build.SIGNATURES["pf_tb_sweep"] == k3 + [vp, vp]
-    assert set(probe.PROBES) == {"K1", "K1e", "K2", "K3"}
+    assert set(kernel_ab.PROBES) == {"K1", "K1e", "K2", "K3"}
     with pytest.raises(SystemExit):
-        probe.main(["--base", ".", "--kernels", "K9"])
+        kernel_ab.main(["--base", ".", "--kernels", "K9"])
+    names = ("stencil.cu", "energy.cu", "boundary.cu", "tb.cu", "tb_shard.cu")
+    assert set(kernel_ab.sources(_build.CSRC, names)) == set(names)
+    for name, marker in kernel_ab.NEEDS.items():
+        src = (_build.CSRC / name).read_text()
+        (tmp_path / name).write_text(src.replace(marker, "_"))
+        with pytest.raises(SystemExit, match="built before"):
+            kernel_ab.sources(tmp_path, (name,))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="NVIDIA card only"):
-        probe.main(["--base", "."])
+        kernel_ab.main(["--base", "."])

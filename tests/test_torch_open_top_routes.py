@@ -45,14 +45,11 @@ from pffdtd_tpu_torch.kernels.tb import tb_sweep, tb_sweep_plain, \
     tb_sweep_shard_plain
 from pffdtd_tpu_torch.parallel.partition import split_rows
 from pffdtd_tpu_torch.parallel.sharded_engine import make_sharded_engine
-from pffdtd_tpu_torch.scene import (fold_fcc_sim, pad_x_interior,
+from pffdtd_tpu_torch.scene import (DEF11, fold_fcc_sim, pad_x_interior,
                                     synthetic_box_sim)
 
 torch.set_num_threads(2)
 
-DEF11 = np.array([[d, e, f] for d, e, f in zip(
-    np.geomspace(0.4, 40.0, 11), np.geomspace(2.0, 80.0, 11),
-    np.geomspace(20.0, 2.0e5, 11))])
 # test_torch_open_top.py's scenes: (box, h, fcc, fold)
 OPEN = {
     "cart": ((1.2, 1.0, 0.8), 0.08, False, False),

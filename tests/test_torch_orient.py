@@ -2,7 +2,7 @@
 
 `scene.rotate_sim` rotates by "auto" by default, as the JAX package's
 does, on the port's own rule (`orientation_scores`: K1 and K2 on the H100,
-fitted to `kernels.orient_probe`'s run; `auto_tr` keeps "descending"'s
+fitted to `probes.orient`'s run; `auto_tr` keeps "descending"'s
 layout unless another scores lower by more than `ORIENT_MARGIN`).  Held
 here:
 - `boundary_face_counts` array-equal to the JAX package's on a Cartesian,
@@ -21,7 +21,7 @@ here:
   pair routes and on NumpyEngine within 1e-12 of max |u_out|, and "auto"
   within 1e-12 of JAX's `_step_core` route (JaxEngine(backend="xla")) on
   the same rotated scene;
-- `orient_probe`'s host side: its candidates put each axis on z, its lane
+- `probes.orient`'s host side: its candidates put each axis on z, its lane
   fill, and its refusal without a card.
 """
 
@@ -38,7 +38,7 @@ from pffdtd_tpu.engine.jax_engine import JaxEngine
 from pffdtd_tpu_torch import prep
 from pffdtd_tpu_torch.engine.numpy_ref import NumpyEngine
 from pffdtd_tpu_torch.engine.torch_engine import TorchEngine
-from pffdtd_tpu_torch.kernels import orient_probe
+from pffdtd_tpu_torch.probes import orient as orient_probe
 from pffdtd_tpu_torch.scene import (ORIENT_MARGIN, auto_tr,
                                     boundary_face_counts, fold_fcc_sim,
                                     orientation_scores, rotate_sim,
@@ -54,7 +54,7 @@ BOXES = {
     "fcc-folded": ((1.6, 1.2, 0.9), 0.1, True, True),
 }
 NT = 64
-# the unrotated grids and cut legs per axis that kernels.orient_probe
+# the unrotated grids and cut legs per axis that probes.orient
 # printed (NVIDIA H100 80GB HBM3, 700 W), and the candidate whose step
 # route ran fastest there: (N, faces, fcc, tr)
 MEASURED = {

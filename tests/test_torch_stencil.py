@@ -169,22 +169,15 @@ def test_plan_k1_covers_the_interior_once(shape, itemsize):
 
 
 def test_probe_tells_the_march_from_the_1d_kernels():
-    """kernels.probe calls a base built before K1's march with the entry
-    less its tiles, compares K1e's SASS across the rename (the 1-D kernel's
-    energy instance, `stencil_energy_kernel` since) and K1's between
-    marches only."""
-    import ctypes
+    """probes.kernel_ab keys K1's SASS on the march's instances (K1 and
+    K5: dtype, adjacency, legs, tile width) and K1e's on the 1-D energy
+    kernel, `stencil_energy_kernel` (dtype, adjacency, legs), neither on
+    the other's."""
     import re
 
-    from pffdtd_tpu_torch.kernels import _build, probe
+    from pffdtd_tpu_torch.probes import kernel_ab
 
-    i = ctypes.c_int
-    new = _build.SIGNATURES["pf_stencil_step"]
-    assert new[10:13] == [i] * 3
-    assert probe.K1_BASE_ARGS == new[:10] + new[13:]
     ns = "_ZN43_GLOBAL__N__901f37f3_10_stencil_cu_d2e80092"
-    before = {(e, s): f"{ns}19stencil_step_kernelIftLi12ELb{s}ELb{e}EEvPKT_"
-              for e in "01" for s in "01"}
     energy = f"{ns}21stencil_energy_kernelIdhLi6EEEvPKT_S3_"
     march = f"{ns}19stencil_step_kernelIftLi12ELi64EEEvNS_8StepArgsIT_T0_EE"
 
@@ -192,10 +185,7 @@ def test_probe_tells_the_march_from_the_1d_kernels():
         m = re.search(pattern[0], name)
         return m.group(*pattern[1]) if m else None
 
-    assert key(probe.K1E_SASS, before[("1", "0")]) == ("f", "t", "12")
-    assert key(probe.K1E_SASS, energy) == ("d", "h", "6")
-    for e, s in (("0", "0"), ("0", "1")):
-        assert key(probe.K1E_SASS, before[(e, s)]) is None
-        assert key(probe.K1_SASS, before[(e, s)]) is None
-    assert key(probe.K1_SASS, march) == ("f", "t", "12", "64")
-    assert key(probe.K1_SASS, energy) is None
+    assert key(kernel_ab.K1E_SASS, energy) == ("d", "h", "6")
+    assert key(kernel_ab.K1E_SASS, march) is None
+    assert key(kernel_ab.K1_SASS, march) == ("f", "t", "12", "64")
+    assert key(kernel_ab.K1_SASS, energy) is None
