@@ -305,7 +305,8 @@ from pffdtd_tpu_torch.kernels.energy import (GRID_THREADS,
 from pffdtd_tpu_torch.kernels.modal import (loop_modes, modal_scan,
                                             modal_scan_plain,
                                             modal_split_plain, serial_modes)
-from pffdtd_tpu_torch.kernels.stencil import (stencil_energy_step,
+from pffdtd_tpu_torch.kernels.stencil import (CompactAdj, adj_bytes,
+                                              stencil_energy_step,
                                               stencil_energy_step_plain,
                                               stencil_step,
                                               stencil_step_plain,
@@ -495,16 +496,27 @@ def random_state(eng, gen):
     return r(*d.grid.shape), r(*d.grid.shape), r(MMb, d.Nbl), r(MMb, d.Nbl)
 
 
+def grid_adj(eng):
+    """The packed adjacency grid of `eng`'s scene on its card: `eng.adj`
+    where the engine holds the grid, else the grid that its compact form
+    stands for (the step route's), from the engine's data."""
+    if isinstance(eng.adj, CompactAdj):
+        return torch.from_numpy(eng.data.adj_grid).to(eng.device)
+    return eng.adj
+
+
 def kernel_checks(eng, gen, timing_reps=0):
-    """One call of K1 and K2 vs their plain versions from a random state.
+    """One call of K1 (on the engine's adjacency) and K2 vs their plain
+    versions (K1's on the packed grid) from a random state.
 
     Returns {name: (max rel err, max abs err, kernel ms, plain ms)}."""
     d = eng.data
     g, sc = d.grid, d.sc
     u0, u1, vh, gh = random_state(eng, gen)
+    adj = grid_adj(eng)
     outk, outp = torch.zeros_like(u0), torch.zeros_like(u0)
     stencil_step(u0, u1, eng.adj, outk, g, sc)
-    stencil_step_plain(u0, u1, eng.adj, outp, g, sc)
+    stencil_step_plain(u0, u1, adj, outp, g, sc)
     torch.cuda.synchronize()
     inner = (slice(1, -1),) * 3
     k1 = rel(outk[inner], outp[inner])
@@ -522,7 +534,7 @@ def kernel_checks(eng, gen, timing_reps=0):
     if timing_reps:
         t["K1"] = (time_ms(lambda: stencil_step(u0, u1, eng.adj, outk, g, sc),
                            timing_reps),
-                   time_ms(lambda: stencil_step_plain(u0, u1, eng.adj, outp,
+                   time_ms(lambda: stencil_step_plain(u0, u1, adj, outp,
                                                       g, sc), 3))
         t["K2"] = (time_ms(lambda: boundary_update(unk, u0, *k2_args, vhk,
                                                    ghk, sc, eng.abcq),
@@ -740,7 +752,7 @@ def energy_step(k1e, boundary_pass, eng, es, ins):
     outs = (torch.zeros_like(u0), Lu.clone(),
             torch.zeros(scratch_size(es.grid, es.ssaf.numel()),
                         dtype=torch.float64, device=Lu.device), z(), z(), z())
-    k1e(u0, u1, eng.adj, *outs[:3], eng.data.grid, eng.data.sc, es)
+    k1e(u0, u1, es.adj, *outs[:3], eng.data.grid, eng.data.sc, es)
     boundary_pass(es, unew, u0, vh, vh_prev, gh_prev, sig, *outs[2:])
     return outs
 
@@ -762,7 +774,7 @@ def energy_check(eng, gen, timing_reps=0):
     sums)."""
     d = eng.data
     g, sc = d.grid, d.sc
-    es = EnergyScene.make(d, adj=eng.adj, ssaf=eng.ssaf, mat=eng.mat,
+    es = EnergyScene.make(d, adj=grid_adj(eng), ssaf=eng.ssaf, mat=eng.mat,
                           in_ixyz=eng.in_ixyz)
     ins = energy_inputs(es, gen, eng.dtype)
     u0, u1, unew, _, vh, vh_prev, gh_prev, sig = ins
@@ -787,7 +799,7 @@ def energy_check(eng, gen, timing_reps=0):
         err=max([rel(ok[0][inner], op[0][inner])[1], rel(ok[1], op[1])[1]]
                 + [abs(a - b) for a, b, _ in en.values()]),
         ms=None, pms=None,
-        nbytes={"K1e": (g.n_interior * (5 * isz + eng.adj.element_size())
+        nbytes={"K1e": (g.n_interior * (5 * isz + es.adj.element_size())
                         + 8 * pairs),
                 "K7": (shell_points(g) * 2 * isz
                        + d.Nbl * (3 * MMb * isz + isz + 4)
@@ -796,7 +808,7 @@ def energy_check(eng, gen, timing_reps=0):
     if timing_reps:
         b_args = (es, unew, u0, vh, vh_prev, gh_prev, sig)
         calls = {
-            "K1e": lambda: stencil_energy_step(u0, u1, eng.adj, *ok[:3], g,
+            "K1e": lambda: stencil_energy_step(u0, u1, es.adj, *ok[:3], g,
                                                sc, es),
             "K1": lambda: stencil_step(u0, u1, eng.adj, ok[0], g, sc)}
         r.ms = {k: float("inf") for k in calls}
@@ -806,7 +818,7 @@ def energy_check(eng, gen, timing_reps=0):
         r.ms["K7"] = time_ms(lambda: energy_boundary_pass(*b_args, *ok[2:]),
                              timing_reps)
         r.pms = {"K1e": time_ms(lambda: stencil_energy_step_plain(
-                     u0, u1, eng.adj, *op[:3], g, sc, es), 2),
+                     u0, u1, es.adj, *op[:3], g, sc, es), 2),
                  "K7": time_ms(lambda: energy_boundary_pass_plain(
                      *b_args, *op[2:]), 2)}
     del ins, ok, op
@@ -2220,7 +2232,7 @@ def main():
     isz = eng.state[0].element_size()
     ni = g.n_interior
     k1_ms, k2_ms = main_chk["K1"][2], main_chk["K2"][2]
-    k1_bytes = ni * (3 * isz + eng.adj.element_size())
+    k1_bytes = ni * 3 * isz + adj_bytes(eng.adj, ni)
     # the open-top box (phase 2's) on the tb route, K3 in its ABC mode,
     # beside its step route, K2 in its ABC mode
     u_otb, t_otb, c_otb = run_route(eng_open, counts_of(eng_open, 1))
@@ -2262,7 +2274,7 @@ def main():
     for TB, (_, _, ms, _) in tb_chk.items():
         print(f"[4] K3 TB={TB} {ms:.4f} ms/sweep, {ms / TB:.4f} ms/step "
               f"(step route K1 + K2 {k1_ms + k2_ms:.4f}), "
-              f"{ni * (4 * isz + eng.adj.element_size()) / ms / 1e6:.1f} "
+              f"{ni * (4 * isz + eng_tb.adj.element_size()) / ms / 1e6:.1f} "
               f"GB/s at 18 B/voxel per sweep", flush=True)
     print(f"[4] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)

@@ -30,13 +30,26 @@
 // passes one barrier (after which plane X-2's slot is free), starts plane
 // X+kRing-2 with cp.async, starts the loads of u^{n-1} and adj of plane X+1
 // into registers, and computes plane X from the slots of X-1, X and X+1
-// with u^{n-1} and adj loaded one position earlier.  Each point sums its
+// with u^{n-1} and adj loaded one position earlier (the compact form: the
+// chunk's words and bases at its start, the legs a position ahead, see
+// `CompactPipe`).  Each point sums its
 // legs in leg order k = 0..NN-1 as bit * x terms, or, where every bit is
 // set (air: nearly every point), as x terms, which are the same values
 // since 1 * x is x; then the leapfrog and the ABC division, with the
 // operations of the plain version in its order (-fmad=false), so the step
 // is bitwise the plain version's.  Tile and chunk come from the wrapper
 // (kernels/stencil.py `plan_k1`, from the shape and dtype alone).
+//
+// K1 reads the adjacency in one of two forms, the kernel's type A: the
+// packed grid, a value a point, or the compact form (A = Compact<L>,
+// kernels/stencil.py `CompactAdj`): a bit a point, set where the legs are
+// not all open, in uint32 words along z (bit b of word w of row (x, y) is
+// z = 1 + 32 w + b); each word's index into a table of the flagged points'
+// legs (a row's int32 plus the word's int16 within the row); and that
+// table.  More than 99% of the points are air, so the form moves 0.15 B a
+// point where the grid moves 2 (FCC) or 1.  The step route takes the
+// compact form, K1 being its adjacency's only reader there; the energy
+// mode (K1e), K3 and the x-slab path (K5) read the grid.
 //
 // K5, shard mode: the same kernel on the owned rows of one x-slab,
 // replacing pffdtd_tpu/engine/pallas_stencil.py
@@ -49,15 +62,20 @@
 // S = Nx-2, xo = 0.
 //
 // Bound: device-memory bandwidth.  Each point reads u1, u0 and adj and
-// writes out once (fp32 FCC: 4 + 4 + 2 + 4 = 14 bytes).  u^n reaches the SM
-// once a point plus the ring's halo, (By+2)(BZ+2)/(By BZ) and (Cx+2)/Cx,
-// where the 1-D design (each thread reading its 12 neighbours from L2, as
-// K1e still does) took nine rows of u^n from L2 for each z-run and ran at
-// 45% of the memory's rate on the 1628 x 635 x 1048 FCC grid.  The march
-// runs there at 73% of it, within 1.2x of a device copy of the same bytes;
-// what is left is spread over the loads, the stores and the arithmetic
-// (PERF.md).  Left for later: an in-place update that drops the third
-// buffer.
+// writes out once: fp32 FCC 4 + 4 + 2 + 4 = 14 bytes on the packed grid
+// (13 Cartesian), 12.16 on the compact form (a 4-byte word for 32 points;
+// the bases and legs of the flagged points, 0.9-1.2% of the benchmark
+// cells' points, add 0.03).  u^n reaches the SM once a point plus the
+// ring's halo, (By+2)(BZ+2)/(By BZ) and (Cx+2)/Cx, where the 1-D design
+// (each thread reading its 12 neighbours from L2, as K1e still does) took
+// nine rows of u^n from L2 for each z-run and ran at 45% of the memory's
+// rate on the 1628 x 635 x 1048 FCC grid.  The march runs there at 73% of
+// it, within 1.2x of a device copy of the same bytes; what is left is
+// spread over the loads, the stores and the arithmetic.  On the compact
+// form an all-air grid runs at the packed grid's rate over its fewer
+// bytes, and the flagged points cost 0.3-0.44 ms a call where they cost
+// the packed grid 0.06-0.10 (PERF.md).  Left for later: an in-place
+// update that drops the third buffer.
 //
 // K1e, energy mode (stencil_energy_kernel): the 1-D design, one z-run of 128
 // points of a (y, x) row a block, the step above and, in the same launch,
@@ -117,11 +135,34 @@ __host__ __device__ constexpr int march_cells() {
           1) / kMarchThreads;
 }
 
+// the compact form as K1's adjacency type: L holds a flagged point's legs
+template <typename L>
+struct Compact {};
+
+// what K1 reads of the adjacency: the packed grid ...
+template <typename A>
+struct AdjOf {
+  const A* grid;  // (Nx, Ny, Nz)
+  using reg = A;  // a point's legs in a register
+  static constexpr bool compact = false;
+};
+// ... or the compact form
+template <typename L>
+struct AdjOf<Compact<L>> {
+  const unsigned* mask;  // (Nx, Ny, W) words, bit b of word w: z = 1+32w+b
+  const int* rows;       // (Nx, Ny): legs' index of the row's first point
+  const short* base;     // (Nx, Ny, W): the word's first point's, in the row
+  const L* legs;         // the flagged points' legs in linear-index order
+  int W;                 // words a row, ceil((Nz - 2) / 32)
+  using reg = unsigned;  // the legs, kFlag where the warp's word is not 0
+  static constexpr bool compact = true;
+};
+
 template <typename T, typename A>
 struct StepArgs {
   const T* u0;
   const T* u1;
-  const A* adj;
+  AdjOf<A> adj;
   T* out;
   int Nx, Ny, Nz, folded;
   int x0, rows, xo;  // local rows [x0, x0+rows) computed, global = local+xo
@@ -154,6 +195,61 @@ __device__ __forceinline__ int mirrored(int y, int z, int Ny, int Nz,
   const int mz = z == 0 ? 2 : (z == Nz - 1 ? Nz - 3 : z);
   return my * Nz + mz;
 }
+
+// set in a point's legs (compact form) where its warp's word is not zero:
+// the whole warp then takes the bit-by-bit sum, and where the word is zero
+// the whole warp takes the all-legs sum
+constexpr unsigned kFlag = 1u << 31;
+
+// The compact form's loads.  A warp is 32 z-consecutive points of one y
+// row (tiles start at z = 1 + BZ t), so a row's word is one broadcast to
+// the warp.  At the start of a chunk the warp loads the words of its rows
+// j for the chunk's planes q (entry e = (q - X0) kMaxRows + j) spread over
+// its lanes, lane e % 32 holding word and base in w[e / 32], b[e / 32];
+// then the bases of the non-zero words.  At position X every lane takes
+// the words and bases of plane X+1 by shuffle and loads the legs of its
+// flagged points, used a position later, so only the chunk's start waits
+// on the chain.  Empty for the packed grid.
+template <typename A, bool = AdjOf<A>::compact>
+struct CompactPipe {};
+
+template <typename A>
+struct CompactPipe<A, true> {
+  static constexpr int kEntries = 64;  // a chunk holds kEntries / kMaxRows
+  unsigned w[2];
+  int b[2];
+  unsigned lt;  // the lanes below this one
+
+  // every lane of the warp: the chunk [X0, X1) of the warp's rows y0 + j
+  // dy (j < ry), in its words' column wz
+  __device__ __forceinline__ void start(const AdjOf<A>& a, int X0, int X1,
+                                        int y0, int dy, int ry, int Ny,
+                                        int wz) {
+    const int lane = threadIdx.x & 31;
+    lt = (1u << lane) - 1u;
+    int row[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int e = lane + 32 * k, q = X0 + e / kMaxRows, j = e % kMaxRows;
+      const int y = y0 + j * dy;
+      row[k] = q < X1 && j < ry && y <= Ny - 2 ? q * Ny + y : -1;
+      w[k] = row[k] >= 0 ? a.mask[row[k] * a.W + wz] : 0u;
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      b[k] = w[k] ? a.rows[row[k]] + a.base[row[k] * a.W + wz] : 0;
+  }
+  // every lane of the warp: the legs of plane X0 + e / kMaxRows, row e %
+  // kMaxRows, at this lane's z (kFlag set where the word is not zero)
+  __device__ __forceinline__ unsigned legs(const AdjOf<A>& a, int e,
+                                           unsigned all) const {
+    const unsigned wd = __shfl_sync(0xffffffffu, e < 32 ? w[0] : w[1], e & 31);
+    const int bs = __shfl_sync(0xffffffffu, e < 32 ? b[0] : b[1], e & 31);
+    if (!wd) return all;
+    return (wd & (lt + 1u) ? unsigned(a.legs[bs + __popc(wd & lt)]) : all) |
+           kFlag;
+  }
+};
 
 template <typename T, typename A, int NN, int BZ>
 __global__ void __launch_bounds__(kMarchThreads)
@@ -196,6 +292,9 @@ stencil_step_kernel(const StepArgs<T, A> p) {
     if (j < ry && y <= Ny - 2 && z <= Nz - 2) live |= 1u << j;
   }
   const int c0 = (team + 1) * RZ + zl + 1;  // ring cell of row j = 0
+  using R = typename AdjOf<A>::reg;
+  constexpr bool kCompact = AdjOf<A>::compact;
+  CompactPipe<A> cp;
 
   // plane q of u^n into its slot, as one commit group (empty past X1)
   auto load = [&](int q) {
@@ -212,26 +311,36 @@ stencil_step_kernel(const StepArgs<T, A> p) {
 
   for (int q = X0 - 1; q < X0 + kRing - 2; ++q) load(q);
   T u0r[kMaxRows], u0n[kMaxRows];
-  A ar[kMaxRows], an[kMaxRows];
+  R ar[kMaxRows], an[kMaxRows];
 #pragma unroll
   for (int j = 0; j < kMaxRows; ++j) {
     u0r[j] = u0n[j] = T(0);
-    ar[j] = an[j] = A(0);
+    ar[j] = an[j] = R(0);
     if (!((live >> j) & 1u)) continue;
     u0r[j] = p.u0[X0 * plane + off[j]];
-    ar[j] = p.adj[X0 * plane + off[j]];
+    if constexpr (!kCompact) ar[j] = p.adj.grid[X0 * plane + off[j]];
+  }
+  if constexpr (kCompact) {  // the chunk's words and bases, plane X0's legs
+    cp.start(p.adj, X0, X1, oy0 + team, kTeams, ry, Ny, (z - 1) / 32);
+#pragma unroll
+    for (int j = 0; j < kMaxRows; ++j) ar[j] = cp.legs(p.adj, j, kAll);
   }
   for (int X = X0; X < X1; ++X) {
     async_wait<kRing - 4>();  // this thread's copies of plane X+1
     __syncthreads();          // everyone's; plane X-2's slot is free
     load(X + kRing - 2);
     if (X + 1 < X1) {
+      if constexpr (kCompact) {
+#pragma unroll
+        for (int j = 0; j < kMaxRows; ++j)
+          an[j] = cp.legs(p.adj, (X + 1 - X0) * kMaxRows + j, kAll);
+      }
       const long long xn = (X + 1) * plane;
 #pragma unroll
       for (int j = 0; j < kMaxRows; ++j) {
         if (!((live >> j) & 1u)) continue;
         u0n[j] = p.u0[xn + off[j]];
-        an[j] = p.adj[xn + off[j]];
+        if constexpr (!kCompact) an[j] = p.adj.grid[xn + off[j]];
       }
     }
     // the x mirror, one choice of slot for the whole block
@@ -252,7 +361,9 @@ stencil_step_kernel(const StepArgs<T, A> p) {
         const int3 v = leg<NN>(k);
         x[k] = (v.x < 0 ? Fm : (v.x > 0 ? Fp : Fc))[c + v.y * RZ + v.z];
       }
-      // masked leg sum in leg order k = 0..NN-1 (the plain version's order)
+      // masked leg sum in leg order k = 0..NN-1 (the plain version's order);
+      // on the compact form a warp whose word is zero takes the first branch
+      // and every other warp the second, whole (kFlag)
       const unsigned a = ar[j];
       T acc, K;
       if (a == kAll) {  // every bit set: bit * x is x
@@ -264,7 +375,10 @@ stencil_step_kernel(const StepArgs<T, A> p) {
         acc = T(a & 1u) * x[0];
 #pragma unroll
         for (int k = 1; k < NN; ++k) acc = acc + T((a >> k) & 1u) * x[k];
-        K = T(__popc(a));
+        if constexpr (kCompact)
+          K = T(__popc(a & kAll));
+        else
+          K = T(__popc(a));
       }
       const T u0c = u0r[j];
       T unew = (T(2) - p.sl2 * K) * Fc[c] - u0c + p.a2 * acc;
@@ -306,25 +420,21 @@ int launch_march(const StepArgs<T, A>& a, cudaStream_t stream) {
 }
 
 template <typename T, typename A, int NN>
-int march(const void* u0, const void* u1, const void* adj, void* out,
+int march(const void* u0, const void* u1, const AdjOf<A>& adj, void* out,
           int Nx, int Ny, int Nz, int folded, int x0, int rows, int xo,
           int By, int Bz, int Cx, double a2, double sl2, double lQ1,
           double lQ2, double lQ3, cudaStream_t s) {
   const StepArgs<T, A> a = {
-      static_cast<const T*>(u0), static_cast<const T*>(u1),
-      static_cast<const A*>(adj), static_cast<T*>(out), Nx, Ny, Nz,
-      folded ? 1 : 0, x0, rows, xo, By, Cx, T(a2), T(sl2), T(lQ1), T(lQ2),
-      T(lQ3)};
+      static_cast<const T*>(u0), static_cast<const T*>(u1), adj,
+      static_cast<T*>(out), Nx, Ny, Nz, folded ? 1 : 0, x0, rows, xo, By,
+      Cx, T(a2), T(sl2), T(lQ1), T(lQ2), T(lQ3)};
   if (Bz == 32) return launch_march<T, A, NN, 32>(a, s);
   if (Bz == 64) return launch_march<T, A, NN, 64>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype: 0 = float32, 1 = float64; nn: 6 (uint8 adjacency) or 12 (uint16)
-int step(int dtype, int nn, const void* u0, const void* u1, const void* adj,
-         void* out, int Nx, int Ny, int Nz, int folded, int x0, int rows,
-         int xo, int By, int Bz, int Cx, double a2, double sl2, double lQ1,
-         double lQ2, double lQ3, cudaStream_t s) {
+// 0 where a step on rows [x0, x0+rows) of an (Nx, Ny, Nz) grid can launch
+int step_shape(int Nx, int Ny, int Nz, int x0, int rows, int xo) {
   if (Nx < 5 || Ny < 5 || Nz < 5) return (int)cudaErrorInvalidValue;
   // in-plane offsets are ints: an (y, z) plane plus a row must fit
   if ((long long)Ny * Nz + Nz + 1 > 2147483647LL)
@@ -332,16 +442,64 @@ int step(int dtype, int nn, const void* u0, const void* u1, const void* adj,
   // the rows must be global interior rows, with a row each side
   if (rows < 1 || x0 < 1 || x0 + xo < 1 || x0 + rows + xo > Nx - 1)
     return (int)cudaErrorInvalidValue;
-#define PF_K1_ARGS                                                          \
-  u0, u1, adj, out, Nx, Ny, Nz, folded, x0, rows, xo, By, Bz, Cx, a2, sl2, \
-      lQ1, lQ2, lQ3, s
-  if (dtype == 0 && nn == 6) return march<float, uint8_t, 6>(PF_K1_ARGS);
-  if (dtype == 0 && nn == 12) return march<float, uint16_t, 12>(PF_K1_ARGS);
-  if (dtype == 1 && nn == 6) return march<double, uint8_t, 6>(PF_K1_ARGS);
-  if (dtype == 1 && nn == 12) return march<double, uint16_t, 12>(PF_K1_ARGS);
-#undef PF_K1_ARGS
+  return 0;
+}
+
+// dtype: 0 = float32, 1 = float64; nn: 6 (uint8 adjacency) or 12 (uint16)
+int step(int dtype, int nn, const void* u0, const void* u1, const void* adj,
+         void* out, int Nx, int Ny, int Nz, int folded, int x0, int rows,
+         int xo, int By, int Bz, int Cx, double a2, double sl2, double lQ1,
+         double lQ2, double lQ3, cudaStream_t s) {
+  const int rc = step_shape(Nx, Ny, Nz, x0, rows, xo);
+  if (rc) return rc;
+  const AdjOf<uint8_t> a8 = {static_cast<const uint8_t*>(adj)};
+  const AdjOf<uint16_t> a16 = {static_cast<const uint16_t*>(adj)};
+#define PF_K1_ARGS                                                         \
+  out, Nx, Ny, Nz, folded, x0, rows, xo, By, Bz, Cx, a2, sl2, lQ1, lQ2, lQ3, \
+      s
+  if (dtype == 0 && nn == 6)
+    return march<float, uint8_t, 6>(u0, u1, a8, PF_K1_ARGS);
+  if (dtype == 0 && nn == 12)
+    return march<float, uint16_t, 12>(u0, u1, a16, PF_K1_ARGS);
+  if (dtype == 1 && nn == 6)
+    return march<double, uint8_t, 6>(u0, u1, a8, PF_K1_ARGS);
+  if (dtype == 1 && nn == 12)
+    return march<double, uint16_t, 12>(u0, u1, a16, PF_K1_ARGS);
   return (int)cudaErrorInvalidValue;
 }
+
+// the step on the compact form: mask, row, base and legs as
+// AdjOf<Compact<L>>
+int step_compact(int dtype, int nn, const void* u0, const void* u1,
+                 const void* mask, const void* row, const void* base,
+                 const void* legs, int W, void* out, int Nx, int Ny, int Nz,
+                 int folded, int By, int Bz, int Cx, double a2, double sl2,
+                 double lQ1, double lQ2, double lQ3, cudaStream_t s) {
+  const int x0 = 1, rows = Nx - 2, xo = 0;
+  const int rc = step_shape(Nx, Ny, Nz, x0, rows, xo);
+  if (rc) return rc;
+  // word indices are ints; a chunk's words fit the warp's entries
+  if (W != (Nz - 2 + 31) / 32 || (long long)Nx * Ny * W > 2147483647LL ||
+      Cx * kMaxRows > CompactPipe<Compact<uint8_t>>::kEntries)
+    return (int)cudaErrorInvalidValue;
+  const AdjOf<Compact<uint8_t>> c8 = {
+      static_cast<const unsigned*>(mask), static_cast<const int*>(row),
+      static_cast<const short*>(base), static_cast<const uint8_t*>(legs), W};
+  const AdjOf<Compact<uint16_t>> c16 = {
+      static_cast<const unsigned*>(mask), static_cast<const int*>(row),
+      static_cast<const short*>(base), static_cast<const uint16_t*>(legs),
+      W};
+  if (dtype == 0 && nn == 6)
+    return march<float, Compact<uint8_t>, 6>(u0, u1, c8, PF_K1_ARGS);
+  if (dtype == 0 && nn == 12)
+    return march<float, Compact<uint16_t>, 12>(u0, u1, c16, PF_K1_ARGS);
+  if (dtype == 1 && nn == 6)
+    return march<double, Compact<uint8_t>, 6>(u0, u1, c8, PF_K1_ARGS);
+  if (dtype == 1 && nn == 12)
+    return march<double, Compact<uint16_t>, 12>(u0, u1, c16, PF_K1_ARGS);
+  return (int)cudaErrorInvalidValue;
+}
+#undef PF_K1_ARGS
 
 // ---- K1e: the 1-D design
 
@@ -466,6 +624,23 @@ extern "C" int pf_stencil_step(int dtype, int nn, const void* u0,
   return step(dtype, nn, u0, u1, adj, out, Nx, Ny, Nz, folded, 1, Nx - 2, 0,
               By, Bz, Cx, a2, sl2, lQ1, lQ2, lQ3,
               static_cast<cudaStream_t>(stream));
+}
+
+// K1 over the whole grid on the compact form (kernels/stencil.py
+// `CompactAdj`): mask (uint32) and base (int16) (Nx, Ny, W) words, W =
+// ceil((Nz-2)/32), row (Nx, Ny) int32, legs the flagged points'; the rest
+// as pf_stencil_step's.
+extern "C" int pf_stencil_step_compact(int dtype, int nn, const void* u0,
+                                       const void* u1, const void* mask,
+                                       const void* row, const void* base,
+                                       const void* legs, int W, void* out,
+                                       int Nx, int Ny, int Nz, int folded,
+                                       int By, int Bz, int Cx, double a2,
+                                       double sl2, double lQ1, double lQ2,
+                                       double lQ3, void* stream) {
+  return step_compact(dtype, nn, u0, u1, mask, row, base, legs, W, out, Nx,
+                      Ny, Nz, folded, By, Bz, Cx, a2, sl2, lQ1, lQ2, lQ3,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // K1e: the step plus K7's grid half (L u^n over Lu in place, the partial

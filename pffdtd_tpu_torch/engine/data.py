@@ -5,8 +5,15 @@ Counterpart of `GridSpec` and `EngineData` in
 and sublane alignment of z and y, x-row tiles, boundary windows) and without
 its plane/stray partitions: the grid keeps its true (Nx, Ny, Nz) extents and
 every lossy node goes through one node list.  Kept from the original:
-- the bit-packed adjacency grid (bit k = leg k is open; air nodes carry the
-  all-ones mask), uint8 for the 6 Cartesian legs, uint16 for the 12 FCC;
+- the bit-packed adjacency (bit k = leg k is open; air nodes carry the
+  all-ones mask), uint8 for the 6 Cartesian legs, uint16 for the 12 FCC:
+  `bn_adj` a boundary node, and `adj_grid`, the (Nx, Ny, Nz) grid, built
+  at first use.  The step route's K1 reads neither as is: the engine
+  uploads the compact form (`kernels.stencil.CompactAdj`, a bit a point
+  and the legs of the flagged points) built from `bn_ixyz` and `bn_adj`.
+  The grid is read where something besides K1 reads the adjacency: the
+  energy route (K1e, K7), the tb and pair routes (K3) and the x-slab path
+  (K5, K6);
 - the lossy-node list with its scaled surface-area factors `ssaf`;
 - the fp32 input scaling `infac`.
 Material coefficients stay per material, a (Nmat+1, 4, MMb) table with
@@ -16,6 +23,7 @@ would cost about 0.5 GB at the headline scene's size.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -264,15 +272,13 @@ class EngineData:
                              fcc_flag=int(consts.fcc_flag))
         self.NN = 12 if self.fcc else 6
 
-        # bit-packed adjacency grid; air nodes carry the all-ones mask
+        # bit-packed adjacency of the boundary nodes (`adj_grid` the grid)
         bn = np.asarray(vox.bn_ixyz, np.int64)
         adt = np.uint16 if self.NN == 12 else np.uint8
-        adj_grid = np.full(self.grid.shape, adt((1 << self.NN) - 1), adt)
         packed = np.zeros(bn.shape[0], adt)
         for k in range(self.NN):
             packed |= vox.adj_bn[:, k].astype(adt) << adt(k)
-        adj_grid.reshape(-1)[bn] = packed
-        self.adj_grid = adj_grid
+        self.bn_ixyz, self.bn_adj = bn, packed
 
         # lossy boundary subset, per-material coefficient table
         lossy = vox.mat_bn > -1
@@ -315,6 +321,16 @@ class EngineData:
             self.infac = max_in / 2.0 ** pow2 if max_in > 0 else 1.0
         else:
             self.infac = 1.0
+
+    @functools.cached_property
+    def adj_grid(self) -> np.ndarray:
+        """The bit-packed adjacency grid; air nodes carry the all-ones
+        mask."""
+        adt = self.bn_adj.dtype
+        adj_grid = np.full(self.grid.shape, adt.type((1 << self.NN) - 1),
+                           adt)
+        adj_grid.reshape(-1)[self.bn_ixyz] = self.bn_adj
+        return adj_grid
 
     @staticmethod
     def default_fp32_eps(dtype) -> float:

@@ -8,7 +8,8 @@ routes compute the same steps:
   (jax_engine.py:632-692):
   1. K1 (`kernels.stencil.stencil_step`): mirror halo flips, the adjacency-
      masked stencil with the leapfrog, and the Engquist-Majda ABC, into a
-     third buffer;
+     third buffer, reading the adjacency's compact form (`self.adj`, a
+     `kernels.stencil.CompactAdj`; the other routes hold the packed grid);
   2. K2 (`kernels.boundary.boundary_update`): the lossy ODE at the Nbl
      nodes, reading u^{n-1} from the untouched u0;
   3. sources: unew[in_ixyz] += sig_n / infac;
@@ -84,7 +85,8 @@ from pffdtd_tpu_torch.kernels.boundary import boundary_update, \
 from pffdtd_tpu_torch.kernels.energy import (energy_boundary_pass,
                                              energy_boundary_pass_plain,
                                              scratch_size)
-from pffdtd_tpu_torch.kernels.stencil import (stencil_energy_step,
+from pffdtd_tpu_torch.kernels.stencil import (CompactAdj,
+                                              stencil_energy_step,
                                               stencil_energy_step_plain,
                                               stencil_step,
                                               stencil_step_plain)
@@ -154,7 +156,13 @@ class TorchEngine:
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
         with spans.span("engine.upload", mem=dev):
-            self.adj = up(d.adj_grid)
+            # K1 alone reads the adjacency on the step route without
+            # energy: it takes the compact form there, the grid elsewhere
+            if self.TB is None and not energy_on:
+                self.adj = CompactAdj.from_nodes(d.bn_ixyz, d.bn_adj,
+                                                 d.grid.shape, d.NN, dev)
+            else:
+                self.adj = up(d.adj_grid)
             self.bnl = up(d.bnl_ixyz)
             self.ssaf = up(d.ssaf_bnl)
             self.mat = up(d.mat_bnl)

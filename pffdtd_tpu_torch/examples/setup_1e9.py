@@ -60,7 +60,8 @@ from pffdtd_tpu_torch.kernels import WRAPPERS, _build
 from pffdtd_tpu_torch.kernels.boundary import boundary_update, \
     boundary_update_plain
 from pffdtd_tpu_torch.kernels.energy import scratch_size
-from pffdtd_tpu_torch.kernels.stencil import (stencil_step,
+from pffdtd_tpu_torch.kernels.stencil import (CompactAdj, adj_bytes,
+                                              stencil_step,
                                               stencil_step_plain,
                                               stencil_step_shard,
                                               stencil_step_shard_plain)
@@ -207,7 +208,7 @@ def energy_gb(eng):
     d = eng.data
     g, isz = d.grid, d.dtype.itemsize
     npts = g.Nx * g.Ny * g.Nz
-    return (4 * npts * isz + npts * eng.adj.element_size()
+    return (4 * npts * isz + eng.adj.numel() * eng.adj.element_size()
             + 4 * MMb * d.Nbl * isz + 8 * scratch_size(g, d.Nbl)) / 1e9
 
 
@@ -353,7 +354,10 @@ def kernel_bytes(eng, name):
     K1 the interior's u0, u1, adj and output; K2 per lossy node its branch
     states in and out, index, ssaf, material and three field values; K3
     (a sweep) four fields and adj over the interior, the states of every
-    node and the tile lists; K5 as K1 on one slab's owned rows."""
+    node and the tile lists; K5 as K1 on one slab's owned rows.  The
+    adjacency counts what the kernel reads of the form it takes
+    (`kernels.stencil.adj_bytes`): on the step route K1 reads the compact
+    form, a 4-byte word for 32 points and the legs of the flagged ones."""
     d = eng.data
     isz = d.dtype.itemsize
     if name == "K5":
@@ -361,25 +365,29 @@ def kernel_bytes(eng, name):
         sl = sh.slab
         return (sl.S * (sl.shape[1] - 2) * (sl.shape[2] - 2)
                 * (3 * isz + sh.adj.element_size()))
-    ni, asz = d.grid.n_interior, eng.adj.element_size()
+    ni = d.grid.n_interior
     if name == "K1":
-        return ni * (3 * isz + asz)
+        return ni * 3 * isz + adj_bytes(eng.adj, ni)
     if name == "K2":
         return d.Nbl * (4 * MMb * isz + 8 + isz + 4 + 3 * isz)
     tl = eng.tb_scene.lists
-    return (ni * (4 * isz + asz) + d.Nbl * (4 * MMb * isz + isz + 4)
+    return (ni * (4 * isz + eng.adj.element_size())
+            + d.Nbl * (4 * MMb * isz + isz + 4)
             + 4 * (tl.rptr.size + 3 * tl.node.size))
 
 
 # each of these returns ([(kernel's output, plain version's)], a call of
 # the kernel, a call of the plain version), both on the same buffers
 def _k1(eng, r):
-    """K1 and its plain version on the same random fields: interiors."""
+    """K1 (on the engine's adjacency) and its plain version (on the packed
+    grid) on the same random fields: interiors."""
     g, sc, adj = eng.data.grid, eng.data.sc, eng.adj
+    grid = (torch.from_numpy(eng.data.adj_grid).to(eng.device)
+            if isinstance(adj, CompactAdj) else adj)
     u0, u1 = r(*g.shape), r(*g.shape)
     ok, op = torch.empty_like(u0), torch.empty_like(u0)
     kernel = lambda: stencil_step(u0, u1, adj, ok, g, sc)
-    plain = lambda: stencil_step_plain(u0, u1, adj, op, g, sc)
+    plain = lambda: stencil_step_plain(u0, u1, grid, op, g, sc)
     kernel(), plain()
     inner = (slice(1, -1),) * 3
     return [(ok[inner], op[inner])], kernel, plain

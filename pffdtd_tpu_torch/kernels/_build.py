@@ -48,6 +48,11 @@ SIGNATURES = {
     # By, Bz, Cx, a2, sl2, lQ1, lQ2, lQ3, stream
     "pf_stencil_step": [_i, _i, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
                         _i, _i, _i, _d, _d, _d, _d, _d, _vp],
+    # dtype, nn, u0, u1, mask, rows, base, legs, W, out, Nx, Ny, Nz,
+    # folded, By, Bz, Cx, a2, sl2, lQ1, lQ2, lQ3, stream
+    "pf_stencil_step_compact": [_i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _i,
+                                _vp, _i, _i, _i, _i, _i, _i, _i, _d, _d, _d,
+                                _d, _d, _vp],
     # dtype, nn, u0, u1, adj, out, Lu, part, npart, Nx, Ny, Nz, folded,
     # a2, sl2, lQ1, lQ2, lQ3, lfac, inv_l2, stream
     "pf_stencil_energy_step": [_i, _i, _vp, _vp, _vp, _vp, _vp, _vp, _ll,

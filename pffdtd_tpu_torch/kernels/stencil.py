@@ -14,6 +14,13 @@ lossy ODE and the sources (K2 and the engine do those):
 The halo layers of `out` are left as they were: every step mirrors them
 afresh from interior data, so they are never read.
 
+K1 reads the adjacency in either of two forms: the packed grid (a uint16 or
+uint8 a point, `EngineData.adj_grid`) or `CompactAdj`, a bit a point, set
+where the legs are not all open, with the legs of those points alone.  The
+engine's step route passes the compact form, since K1 is its adjacency's
+only reader there; K1e, K3 and K5 read the grid.  The plain versions take
+either and expand the compact form to the grid (`CompactAdj.to_grid`).
+
 `stencil_step_shard` (K5, the same kernel on a slab's rows) and
 `stencil_step_shard_plain` compute the same step on the owned rows of one
 x-slab (`engine.data.SlabSpec`), the counterpart of
@@ -28,6 +35,7 @@ by `stencil_step_plain`.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import itertools
 import math
@@ -54,13 +62,18 @@ GRID_YZ_LIMIT = 65535     # blocks along a launch's y and z
 class K1Geometry:
     """One K1 (or K5) launch: tiles of By x Bz interior points of (y, z),
     chunks of Cx rows, `grid` = (z tiles, y tiles, chunks) blocks of
-    MARCH_THREADS threads, `smem` bytes of shared memory a block."""
+    MARCH_THREADS threads, `smem` bytes of shared memory a block; on the
+    compact form, `flagged` and `words` count its flagged points and its
+    non-zero words."""
 
     By: int
     Bz: int
     Cx: int
     grid: tuple
     smem: int
+    # on the compact form: its flagged points and non-zero mask words
+    flagged: int | None = None
+    words: int | None = None
 
     @property
     def blocks(self) -> int:
@@ -102,6 +115,157 @@ def plan_k1(rows: int, Ny: int, Nz: int, itemsize: int) -> K1Geometry:
                       MARCH_RING * (By + 2) * (Bz + 2) * itemsize)
 
 
+@functools.lru_cache(maxsize=64)
+def _counted(geo: K1Geometry, flagged: int, words: int) -> K1Geometry:
+    return dataclasses.replace(geo, flagged=flagged, words=words)
+
+
+WORD = 32   # interior z points a mask word holds
+
+
+@dataclass(eq=False)
+class CompactAdj:
+    """The adjacency of an (Nx, Ny, Nz) grid as K1 reads it on the step
+    route, in place of the packed grid: more than 99% of the points are
+    air (every leg open), so a bit a point says which are not, and only
+    those carry their legs.
+
+    - mask: (Nx, Ny, W) int32 holding uint32 words, W = ceil((Nz-2)/32):
+      bit b of word w of row (x, y) is set where interior point z = 1 +
+      32 w + b is flagged (its packed legs are not all ones);
+    - rows: (Nx, Ny) int32, the index into `legs` of the row's first
+      flagged point, an exclusive prefix count of the set bits;
+    - base: (Nx, Ny, W) int16, the same of the word's first flagged point
+      less its row's (at most Nz-2): its index is rows + base;
+    - legs: (flagged,) the flagged points' packed legs in linear-index
+      order, uint16 (12 FCC legs) or uint8 (6 Cartesian).
+    A warp of K1 holds 32 z-consecutive points of a row from z = 1 + 32 k
+    on, so it reads one word a row; `flagged` and `words` count the
+    flagged points and the non-zero words."""
+
+    shape: tuple
+    nn: int
+    mask: torch.Tensor
+    rows: torch.Tensor
+    base: torch.Tensor
+    legs: torch.Tensor
+    flagged: int
+    words: int
+
+    @classmethod
+    def from_nodes(cls, ixyz, legs, shape, nn: int, device="cpu"):
+        """From the flat indices `ixyz` of nodes and their packed legs
+        (numpy arrays or tensors, any order): nodes with every leg open,
+        and those off the interior, which K1 does not read, are left
+        out."""
+        shape = tuple(int(n) for n in shape)
+        Nx, Ny, Nz = shape
+        if Nz - 2 > 2**15 - 1:
+            raise ValueError(f"Nz={Nz}: a row's bases are int16")
+        full = (1 << nn) - 1
+        ix = torch.as_tensor(np.asarray(ixyz, np.int64) if isinstance(
+            ixyz, np.ndarray) else ixyz).to(device, torch.int64)
+        lg = torch.as_tensor(np.asarray(legs, np.int32) if isinstance(
+            legs, np.ndarray) else legs).to(device, torch.int32)
+        x, y, z = ix // (Ny * Nz), ix // Nz % Ny, ix % Nz
+        keep = ((lg != full) & (x >= 1) & (x <= Nx - 2) & (y >= 1)
+                & (y <= Ny - 2) & (z >= 1) & (z <= Nz - 2))
+        ix, order = torch.sort(ix[keep])           # linear-index order
+        lg, z = lg[keep][order], z[keep][order]
+        if bool((ix[1:] == ix[:-1]).any()):
+            raise ValueError("ixyz: a point listed twice")
+        W = -(-(Nz - 2) // WORD)
+        word = ix // Nz * W + (z - 1) // WORD       # row (x, y) = ix // Nz
+        n = Nx * Ny * W
+        # a word's bits are distinct points, so their sum is their OR
+        bits = torch.zeros(n, dtype=torch.int64, device=device).index_add_(
+            0, word, torch.ones_like(word) << ((z - 1) % WORD))
+        count = torch.bincount(word, minlength=n)
+        base = (count.cumsum(0) - count).view(Nx, Ny, W)
+        rows = base[:, :, 0].contiguous()
+        mask = (bits - (bits >> 31 << 32)).to(torch.int32)   # uint32 bits
+        del bits, count
+        return cls(shape=shape, nn=nn, mask=mask.view(Nx, Ny, W),
+                   rows=rows.to(torch.int32),
+                   base=(base - rows[:, :, None]).to(torch.int16),
+                   legs=lg.to(torch.uint16 if nn == 12 else torch.uint8),
+                   flagged=int(ix.numel()), words=int((mask != 0).sum()))
+
+    @classmethod
+    def from_grid(cls, adj: torch.Tensor):
+        """From a packed grid (uint16: 12 legs; uint8: 6) on its device."""
+        nn = 12 if adj.dtype == torch.uint16 else 6
+        a = adj.to(torch.int32)
+        flag = a != (1 << nn) - 1
+        ixyz = torch.nonzero(flag.view(-1)).squeeze(1)
+        return cls.from_nodes(ixyz, a.view(-1)[ixyz], adj.shape, nn,
+                              adj.device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.mask.device
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.mask, self.rows, self.base, self.legs))
+
+    @property
+    def read_bytes(self) -> int:
+        """Bytes one K1 call reads of it: every word, and for each non-zero
+        word its row's and its own base, and the legs of each flagged
+        point."""
+        return (self.mask.numel() * 4 + self.words * 6
+                + self.flagged * self.legs.element_size())
+
+    def to_grid(self) -> torch.Tensor:
+        """The packed grid it stands for, on its device, from the mask,
+        bases and legs alone: all ones off the flagged points."""
+        Nx, Ny, Nz = self.shape
+        W = self.mask.shape[2]
+        out = torch.full(self.shape, (1 << self.nn) - 1, dtype=torch.int32,
+                         device=self.device)
+        m = self.mask.view(-1)
+        wid = torch.nonzero(m).squeeze(1)
+        w = m[wid].to(torch.int64) & 0xFFFFFFFF
+        at = (self.rows.view(-1)[wid // W].to(torch.int64)
+              + self.base.view(-1)[wid])               # legs of bit 0 on
+        z0 = wid // W * Nz + 1 + WORD * (wid % W)      # flat index of bit 0
+        legs = self.legs.to(torch.int32)
+        for b in range(WORD):
+            on = ((w >> b) & 1).bool()
+            out.view(-1)[z0[on] + b] = legs[at[on]]
+            at += on
+        return out.to(self.legs.dtype)
+
+    def check(self, shape, nn: int):
+        """Raises ValueError unless it is a compact form K1 can take for an
+        (Nx, Ny, Nz) `shape` grid of `nn` legs."""
+        shape = tuple(shape)
+        W = -(-(shape[2] - 2) // WORD)
+        ldt = torch.uint16 if nn == 12 else torch.uint8
+        parts = (self.mask, self.rows, self.base, self.legs)
+        want = ((*shape[:2], W), torch.int32), (shape[:2], torch.int32), \
+            ((*shape[:2], W), torch.int16), ((self.flagged,), ldt)
+        if self.shape != shape or self.nn != nn \
+                or any((tuple(t.shape), t.dtype) != w
+                       for t, w in zip(parts, want)) \
+                or not all(t.is_contiguous() for t in parts) \
+                or len({t.device for t in parts}) != 1:
+            raise ValueError(f"adj: want the compact form of a {shape} grid "
+                             f"of {nn} legs (mask, rows, base and legs "
+                             f"{want} on one device)")
+
+
+def adj_bytes(adj, n_interior: int) -> int:
+    """Bytes of the adjacency one K1 call reads on a grid of `n_interior`
+    interior points: a value a point of the packed grid, or the compact
+    form's `read_bytes`."""
+    if isinstance(adj, CompactAdj):
+        return adj.read_bytes
+    return n_interior * adj.element_size()
+
+
 def abc_regions(grid):
     """Disjoint (slices, Q) regions of the ABC layers: 6 face interiors,
     12 edges, 8 corners (jax_engine.py `_abc_regions`).  On a folded grid
@@ -121,9 +285,9 @@ def abc_regions(grid):
     return regions
 
 
-def _check(u0, u1, adj, out, grid, shape=None):
-    """Checks a step's tensors; `shape` is the slab's (default the grid's).
-    Returns the leg count."""
+def _check(u0, u1, adj, out, grid, shape=None, compact=False):
+    """Checks a step's tensors; `shape` is the slab's (default the grid's);
+    `adj` may be a `CompactAdj` where `compact`.  Returns the leg count."""
     shape = tuple(grid.shape if shape is None else shape)
     for name, t in (("u0", u0), ("u1", u1), ("out", out)):
         if t.dtype not in (torch.float32, torch.float64) \
@@ -134,7 +298,12 @@ def _check(u0, u1, adj, out, grid, shape=None):
             raise ValueError(f"{name}: want a contiguous {shape} grid")
     nn = 12 if grid.fcc_flag else 6
     adt = torch.uint16 if nn == 12 else torch.uint8
-    if adj.dtype != adt or tuple(adj.shape) != shape \
+    if isinstance(adj, CompactAdj):
+        if not compact:
+            raise ValueError("adj: this kernel reads the packed grid "
+                             "(CompactAdj.to_grid gives it)")
+        adj.check(shape, nn)
+    elif adj.dtype != adt or tuple(adj.shape) != shape \
             or not adj.is_contiguous():
         raise ValueError(f"adj: want a contiguous {shape} {adt} grid")
     if len({t.device for t in (u0, u1, adj, out)}) != 1:
@@ -158,8 +327,9 @@ def stencil_step(u0, u1, adj, out, grid, sc):
     """One K1 step into the interior of `out`; returns `out`.
 
     u0 = u^{n-1}, u1 = u^n, out = scratch for u^{n+1} (all (Nx, Ny, Nz));
-    adj: packed adjacency grid; grid: GridSpec; sc: SchemeCoeffs."""
-    nn = _check(u0, u1, adj, out, grid)
+    adj: packed adjacency grid or its `CompactAdj`; grid: GridSpec; sc:
+    SchemeCoeffs."""
+    nn = _check(u0, u1, adj, out, grid, compact=True)
     if u1.device.type == "cpu":
         return stencil_step_plain(u0, u1, adj, out, grid, sc)
     if u1.device.type != "cuda":
@@ -167,12 +337,21 @@ def stencil_step(u0, u1, adj, out, grid, sc):
     lib = _build.library()
     Nx, Ny, Nz = grid.shape
     geo = plan_k1(Nx - 2, Ny, Nz, u1.element_size())
+    shape = (Nx, Ny, Nz, int(grid.folded), geo.By, geo.Bz, geo.Cx, sc.a2,
+             sc.sl2, sc.l * 1, sc.l * 2, sc.l * 3)
     with _build.on_device(u1.device):
-        rc = lib.pf_stencil_step(
-            *_launch_args(u0, u1, adj, out, nn), Nx, Ny, Nz,
-            int(grid.folded), geo.By, geo.Bz, geo.Cx, sc.a2, sc.sl2,
-            sc.l * 1, sc.l * 2, sc.l * 3,
-            torch.cuda.current_stream(u1.device).cuda_stream)
+        stream = torch.cuda.current_stream(u1.device).cuda_stream
+        if isinstance(adj, CompactAdj):
+            rc = lib.pf_stencil_step_compact(
+                0 if u1.dtype == torch.float32 else 1, nn, u0.data_ptr(),
+                u1.data_ptr(), adj.mask.data_ptr(), adj.rows.data_ptr(),
+                adj.base.data_ptr(), adj.legs.data_ptr(), adj.mask.shape[2],
+                out.data_ptr(),
+                *shape, stream)
+            geo = _counted(geo, adj.flagged, adj.words)
+        else:
+            rc = lib.pf_stencil_step(*_launch_args(u0, u1, adj, out, nn),
+                                     *shape, stream)
     _build.check(rc, "stencil_step")
     stencil_step.launches += 1
     stencil_step.geometry = geo
@@ -228,7 +407,10 @@ def stencil_energy_step_plain(u0, u1, adj, out, Lu, part, grid, sc, es):
 
 
 def stencil_step_plain(u0, u1, adj, out, grid, sc):
-    """Shifted-slice PyTorch version of K1 (same signature and result)."""
+    """Shifted-slice PyTorch version of K1 (same signature and result): the
+    compact form is expanded to the packed grid first."""
+    if isinstance(adj, CompactAdj):
+        adj = adj.to_grid()
     return stencil_rows_plain(u0, u1, adj, out, grid, sc, 0, 1,
                               grid.Nx - 1)
 

@@ -21,7 +21,11 @@ kernel:
    nodes (the 36 x 28 x 23 m folded-FCC box at h = 0.046: 1,169,067
    nodes) and K3 (TB = 3) on the headline cell, each from a seeded random
    state, after one call of each compared bit for bit (K1e: u^{n+1}, L
-   u^n and its sums);
+   u^n and its sums); K1 also on a box's adjacency (the surface of a box
+   three points in from the halo flagged, with random legs), the base's
+   K1 on the packed grid against this tree's on its compact form
+   (`kernels.stencil.CompactAdj`, the step route's), bit for bit and in
+   turns;
 3. K2 and K3: on the same box without its top wall (its lossy nodes on the
    top ABC layer flagged), this tree's kernel in its ABC mode and without
    it on the same inputs, in turns (fp32).
@@ -36,6 +40,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import math
 import re
 import subprocess
 import sys
@@ -205,17 +210,42 @@ class Fields:
                                     device="cuda")
         return self.Lu, self.part
 
-    def k1(self, lib, out=None):
+    def box(self):
+        """The adjacency of a box's surface three points in from the halo:
+        its points flagged with random legs (not all open), seeded; the
+        rest air."""
+        full = (1 << self.nn) - 1
+        g = torch.Generator(device="cuda").manual_seed(1)
+        adj = torch.full(self.shape, full, dtype=torch.int32, device="cuda")
+        lo, hi = 4, [n - 5 for n in self.shape]
+        box = adj[lo:hi[0] + 1, lo:hi[1] + 1, lo:hi[2] + 1]
+        for a in range(3):
+            for end in (0, -1):
+                face = box.select(a, end)
+                face.copy_(torch.randint(0, full, face.shape, generator=g,
+                                         device="cuda", dtype=torch.int32))
+        self.adj = adj.to(self.adj.dtype)
+
+    def k1(self, lib, out=None, compact=None):
         """K1 of `lib` into `out` (default self.out) on the tiles `plan_k1`
-        gives."""
+        gives, on the packed grid or on `compact`, its CompactAdj."""
         from pffdtd_tpu_torch.kernels.stencil import plan_k1
 
         p = lambda t: t.data_ptr()
         Nx, Ny, Nz = self.shape
         geo = plan_k1(Nx - 2, Ny, Nz, self.u1.element_size())
-        args = (self.code, self.nn, p(self.u0), p(self.u1), p(self.adj),
-                p(self.out if out is None else out), *self.shape, 1, geo.By,
-                geo.Bz, geo.Cx, 0.25, 3.0, 0.57, 1.14, 1.71, self.stream)
+        rest = (*self.shape, 1, geo.By, geo.Bz, geo.Cx, 0.25, 3.0, 0.57,
+                1.14, 1.71, self.stream)
+        o = p(self.out if out is None else out)
+        if compact is not None:
+            c = compact
+            args = (self.code, self.nn, p(self.u0), p(self.u1), p(c.mask),
+                    p(c.rows), p(c.base), p(c.legs), c.mask.shape[2], o,
+                    *rest)
+            return lambda: _build.check(lib.pf_stencil_step_compact(*args),
+                                        "K1")
+        args = (self.code, self.nn, p(self.u0), p(self.u1), p(self.adj), o,
+                *rest)
         return lambda: _build.check(lib.pf_stencil_step(*args), "K1")
 
     def k1e(self, lib):
@@ -258,8 +288,36 @@ def probe_k1(base: Path):
             print(f"[base] K1 {dt} {'FCC' if fcc else 'Cartesian'} "
                   f"{shape}: bitwise equal {same}; "
                   + fmt(turns(calls, IN_TURNS)), flush=True)
-            del f, calls
+            del calls
+            probe_k1_compact(libs, f)
+            del f
             torch.cuda.empty_cache()
+
+
+def probe_k1_compact(libs, f):
+    """The base's K1 on a box's packed grid against this tree's on its
+    compact form: bit for bit, then in turns."""
+    from pffdtd_tpu_torch.kernels.stencil import CompactAdj
+
+    f.box()
+    c = CompactAdj.from_grid(f.adj)
+    outs = {k: torch.empty_like(f.u0) for k in libs}
+    f.k1(libs["base"], outs["base"])()
+    f.k1(libs["tree"], outs["tree"], compact=c)()
+    torch.cuda.synchronize()
+    inner = (slice(1, -1),) * 3
+    same = torch.equal(outs["base"][inner], outs["tree"][inner])
+    del outs
+    calls = {"base": f.k1(libs["base"]), "tree": f.k1(libs["tree"],
+                                                      compact=c)}
+    ni = math.prod(n - 2 for n in f.shape)
+    print(f"[compact] K1 {f.u0.dtype} {'FCC' if f.nn == 12 else 'Cartesian'}"
+          f" {f.shape}, a box's adjacency ({c.flagged} points flagged, "
+          f"{c.words} of {c.mask.numel()} words not zero, "
+          f"{c.read_bytes / ni:.4f} B a point): base on the grid, tree on "
+          f"the compact form, "
+          f"bitwise equal {same}; " + fmt(turns(calls, IN_TURNS)),
+          flush=True)
 
 
 def probe_k1e(base: Path):

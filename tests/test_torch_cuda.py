@@ -25,6 +25,10 @@ fp64 value than the fp32 plain versions; the energy route's resume
 bitwise equal to the uninterrupted run; K8 (the modal recurrence)
 <= 1e-12 of its numpy loop and of its design's plain version
 (`modal_split_plain`), its loop modes bitwise equal to the numpy loop.
+K1 on the adjacency's compact form (the step route's) bitwise equal to
+K1 on the packed grid and to its plain version, on the same kinds of
+grids, fp32 and fp64, both tile widths; the benchmark cells' 1.08e9-point
+engines hold the compact form and no packed grid.
 K1 and K5 bitwise equal to their plain versions on random fields and a
 random adjacency (air and masked points) of ragged grids: Nx-2, Ny-2 and
 Nz-2 no multiples of the tiles and chunks (planned, and forced to both
@@ -514,6 +518,91 @@ def test_k1_k5_bitwise_on_ragged_grids(cuda, monkeypatch, shape, kind,
         assert torch.equal(ka[1:-1, 1:-1, 1:-1], kb[1:-1, 1:-1, 1:-1])
         assert torch.equal(ka[1:-1, 1:-1, 1:-1], a[lo:hi, 1:-1, 1:-1])
         assert torch.isnan(ka[0]).all() and torch.isnan(ka[-1]).all()
+
+
+# ragged grids and two whose Nz-2 is a whole number of 32-point words
+COMPACT_SHAPES = RAGGED + [(9, 13, 66), (11, 40, 34)]
+
+
+@pytest.mark.parametrize("geometry", list(FORCED))
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("kind", ["cart", "fcc", "fcc-folded"])
+@pytest.mark.parametrize("shape", COMPACT_SHAPES)
+def test_k1_on_the_compact_form_bitwise(cuda, monkeypatch, shape, kind,
+                                        dtype, geometry):
+    """K1 on the compact form, bitwise K1 on the packed grid and the plain
+    version: air at nine points in ten, every point flagged at z = 1, 32,
+    33 and Nz-2, a fully flagged row and an all-air row; tiles 64 and 32
+    wide; the launch's geometry counts the form's flagged points and
+    non-zero words."""
+    if FORCED[geometry] is not None:
+        By, Bz, Cx = FORCED[geometry]
+        monkeypatch.setattr(kstencil, "plan_k1", lambda *a: kstencil.
+                            K1Geometry(By, Bz, Cx, (), 0))
+    fcc = kind != "cart"
+    g = GridSpec(*shape, 2 if kind == "fcc-folded" else int(fcc))
+    sc = SchemeCoeffs.make(0.57 if fcc else 0.55, 0.33, fcc)
+    rng = np.random.default_rng(sum(shape))
+    nn = 12 if fcc else 6
+    full = (1 << nn) - 1
+    bits = rng.integers(0, full, shape)
+    bits[rng.random(shape) < 0.9] = full
+    for z in (1, 32, 33, shape[2] - 2):
+        if z <= shape[2] - 2:
+            bits[:, :, z] = rng.integers(0, full, shape[:2])
+    bits[:, 1, :] = rng.integers(0, full, (shape[0], shape[2]))
+    bits[:, 2, :] = full
+    adj = torch.from_numpy(bits.astype(np.int32)).to(
+        torch.uint16 if fcc else torch.uint8).to(cuda)
+    c = kstencil.CompactAdj.from_grid(adj)
+    inner = (slice(1, -1),) * 3
+    assert torch.equal(c.to_grid()[inner], adj[inner])
+    t = lambda: torch.from_numpy(rng.standard_normal(shape).astype(
+        dtype)).to(cuda)
+    u0, u1 = t(), t()
+    a, b, p = (torch.full_like(u0, float("nan")) for _ in range(3))
+    n = stencil_step.launches
+    stencil_step(u0, u1, c, a, g, sc)
+    geo = stencil_step.geometry
+    stencil_step(u0, u1, adj, b, g, sc)
+    stencil_step_plain(u0, u1, c, p, g, sc)
+    torch.cuda.synchronize()
+    assert stencil_step.launches == n + 2
+    assert (geo.flagged, geo.words) == (c.flagged, c.words) and c.words
+    assert stencil_step.geometry.flagged is None
+    assert torch.isfinite(a[inner]).all()
+    assert torch.equal(a[inner], b[inner]) and torch.equal(a[inner],
+                                                           p[inner])
+    halo = torch.ones(shape, dtype=torch.bool, device=cuda)
+    halo[inner] = False
+    assert torch.isnan(a[halo]).all()
+
+
+@pytest.mark.parametrize("cell", ["fcc_lossy_box.step",
+                                  "cart_lossy_box.step"])
+def test_cell_engines_hold_the_compact_form(cuda, cell):
+    """The benchmark cells' 1.08e9-point engines hold the compact form and
+    no packed grid: what the engine's uploads allocate is the compact
+    form, the node tables and the signals (`engine_static_gib`)."""
+    from rirbench import program, spec
+
+    c = spec.load_cell(cell)
+    cfg, traffic = c["config"], c["traffic"]
+    sim = program.scene(cfg, traffic, *program.request(cfg, traffic, 1))
+    gc.collect()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated()
+    eng = program.engine(cfg, traffic, sim, "cuda")
+    static = torch.cuda.memory_allocated() - m0
+    g = eng.data.grid
+    assert isinstance(eng.adj, kstencil.CompactAdj)
+    assert eng.adj.nbytes < 0.28 * 2**30
+    # the node tables and signals take 0.08-0.1 GiB; the grid 1.0-2.0
+    assert static < eng.adj.nbytes + 0.2 * 2**30 < g.n_interior
+    assert "adj_grid" not in vars(eng.data)     # nor on the host
+    del eng, sim
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize("chunk", [None, 7])
