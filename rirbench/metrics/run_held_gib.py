@@ -1,8 +1,7 @@
 """run_held_gib (GiB): device memory still held when the run that set the
 peak starts to allocate its own (`run.state`'s entry allocation), beyond
-the engine's (`engine_static_gib`): the last run's state, which
-`self.state` keeps until the new one is allocated, and the run's
-signals."""
+the engine's (`engine_static_gib`): the run's signals.  The last run's
+state is dropped before the run's first span, so it is not held here."""
 
 from rirbench.spans import GIB, engine_static_bytes, peak_state, records
 

@@ -80,6 +80,26 @@ def receivers(sim, u_out):
                      taps.reshape(nr, 8, taps.shape[1]))
 
 
+def k1_adj_bytes(eng) -> int:
+    """Bytes of the adjacency that one K1 call must read on the engine's
+    route, each read once.  On the step route K1 reads the compact form
+    (`eng.adj`, `CompactAdj`) of the rows it steps, x and y off the
+    halo: their mask words, the word base of each non-zero word, the row
+    base of each row that holds one, and the legs of each flagged point.
+    Elsewhere it reads the packed grid: a value an interior point."""
+    import torch
+    a = eng.adj
+    if isinstance(a, torch.Tensor):
+        nx, ny, nz = a.shape
+        return (nx - 2) * (ny - 2) * (nz - 2) * a.element_size()
+    mask = a.mask[1:-1, 1:-1]
+    rows = int((mask != 0).any(dim=2).sum())
+    return (mask.numel() * mask.element_size()
+            + a.words * a.base.element_size()
+            + rows * a.rows.element_size()
+            + a.flagged * a.legs.element_size())
+
+
 def _wrappers() -> dict:
     """The port's kernel wrappers by name; each counts its launches."""
     from pffdtd_tpu_torch.kernels.boundary import boundary_update

@@ -103,7 +103,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
     t = time.perf_counter()
     eng = program.engine(cfg, traffic, sim, device)
     spans["engine_build_s"] = time.perf_counter() - t
-    for i in range(2):   # the second allocates beside the first's state
+    for i in range(2):   # the second drops the first's state, then allocates
         t = time.perf_counter()
         eng.run(nt=warm_steps(traffic, eng.Nt), verbose=False)
         stamps[f"warm{i}"] = time.perf_counter() - t
@@ -140,7 +140,8 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
            "grid": g.shape, "fcc": bool(g.fcc_flag), "folded": g.folded,
            "itemsize": eng.data.dtype.itemsize, "Nbl": eng.data.Nbl,
            "branches": int(cfg["branches_per_material"]),
-           "route": eng.backend, "TB": eng.TB, "Nt": eng.Nt, "spans": spans,
+           "route": eng.backend, "TB": eng.TB, "Nt": eng.Nt,
+           "k1_adj_bytes": program.k1_adj_bytes(eng), "spans": spans,
            "trace": tr.summary() if tr is not None else None}
     if run["trace"] is not None:
         log(f"[rirbench] traced: idle gaps at ms {run['trace']['gaps_at_ms']}")

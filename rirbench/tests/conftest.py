@@ -30,10 +30,10 @@ def tiny_cell(name, precision="float32", room=(2.6, 2.1, 1.7), h=0.1,
               seconds=0.01):
     """`name`'s cell on a small room (the same scheme, walls and
     traffic), for runs on the CPU.  A cell `<config>.<traffic>` that
-    BENCHMARK.json does not list yet (PERF.md §7: the Cartesian
-    configuration, the tb route) is made from the files of its
-    configuration and traffic, with the limits of the benchmark's first
-    cell and the per-layer metrics that name no cells."""
+    BENCHMARK.json does not list yet (PERF.md §7's planned cells) is
+    made from the files of its configuration and traffic, with the limits
+    of the benchmark's first cell and the per-layer metrics that name no
+    cells."""
     import json
     from rirbench import spec
     try:

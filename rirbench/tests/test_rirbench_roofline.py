@@ -8,7 +8,7 @@ per-tile node lists that the kernel derives for itself."""
 
 import pytest
 
-from rirbench.roofline import PEAKS, k1, k2, k3, least_seconds
+from rirbench.roofline import PEAKS, interior, k1, k2, k3, least_seconds
 
 HEADLINE = {"grid": (792, 310, 510), "fcc": True, "itemsize": 4,
             "Nbl": 1_169_067, "TB": 3}
@@ -45,3 +45,47 @@ def test_cartesian_adjacency_is_one_byte():
          "branches": 11, "Nbl": 0, "TB": 3}
     assert k1.cost(g)[0] == 789 * 615 * 507 * 13
     assert k3.cost(g)[0] == 789 * 615 * 507 * 17
+
+
+@pytest.mark.parametrize("name", ["fcc_lossy_box.step", "cart_lossy_box.step",
+                                  "fcc_lossy_box.tb"])
+def test_k1_counts_the_adjacency_the_route_reads(name, tiny):
+    """On a small cell, K1's bytes are its three fields' and the
+    adjacency's that the engine holds: on the step route the compact
+    form's mask words of the interior rows, the base of each non-zero
+    word and of each row holding one, and the flagged points' legs,
+    counted here from the engine's host grid (`EngineData.adj_grid`), not
+    from the form; on the tb route the packed grid."""
+    import torch
+
+    from rirbench import program
+    cell = tiny(name)
+    cfg, traffic = cell["config"], cell["traffic"]
+    src, rx = program.request(cfg, traffic, 2**33 + 9)
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        eng = program.engine(cfg, traffic,
+                             program.scene(cfg, traffic, src, rx), "cpu")
+    finally:
+        torch.set_num_threads(n_threads)
+    fcc = cfg["grid"] == "fcc"
+    shape = tuple(eng.data.grid.shape)
+    n = interior(shape)
+    legs = 2 if fcc else 1
+    if traffic["route"] == "tb":
+        want = n * legs
+    else:
+        g = torch.from_numpy(eng.data.adj_grid[1:-1, 1:-1, 1:-1]
+                             .astype("int32"))
+        flag = g != (1 << (12 if fcc else 6)) - 1
+        w = -(-flag.shape[2] // 32)
+        words = torch.nn.functional.pad(flag, (0, 32 * w - flag.shape[2])) \
+            .view(*flag.shape[:2], w, 32).any(-1)
+        want = (4 * (shape[0] - 2) * (shape[1] - 2) * w
+                + 2 * int(words.sum())
+                + 4 * int(words.any(-1).sum()) + legs * int(flag.sum()))
+        assert 0 < int(flag.sum()) < n
+    run = {"grid": shape, "fcc": fcc, "itemsize": 4,
+           "k1_adj_bytes": program.k1_adj_bytes(eng)}
+    assert k1.cost(run)[0] == 3 * 4 * n + want

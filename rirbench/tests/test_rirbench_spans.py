@@ -1,4 +1,4 @@
-"""The readers of the program's spans (`rirbench/spans.py` and its eight
+"""The readers of the program's spans (`rirbench/spans.py` and its nine
 metrics) on hand-made stores, and on the store of a small room's set-up
 and runs on the CPU."""
 
@@ -76,13 +76,24 @@ def _read(run):
 
 
 def test_new_metrics_are_appended_with_their_cell():
-    bench = spec.manifest()
-    names = [m["name"] for m in bench["per_layer"]]
-    assert names[-8:] == NEW and len(names) == 15
-    for m in bench["per_layer"][-8:]:
-        assert m["workloads"] == ["fcc_lossy_box.step"]
+    """Each span metric is listed, with the step cell among its cells;
+    later entries and cells may come beside them."""
+    listed = {m["name"]: m for m in spec.manifest()["per_layer"]}
+    for name in NEW:
+        assert name in listed
+        assert "fcc_lossy_box.step" in listed[name]["workloads"]
     cell = spec.load_cell("fcc_lossy_box.step")
     assert set(NEW) <= {m["name"] for m in cell["per_layer"]}
+
+
+@pytest.mark.parametrize("tb", [False, True])
+def test_tb_scene_seconds_on_a_hand_made_store(monkeypatch, tb):
+    """engine_tb_scene_s reads the engine.tb_scene span (1 s in the tb
+    store), and nothing where the engine built no tile lists."""
+    monkeypatch.setattr(pspans, "records", lambda: _store(tb))
+    v = spec.reader("engine_tb_scene_s")(TRACED)
+    assert v == (pytest.approx(1.0) if tb else None)
+    assert spec.reader("engine_tb_scene_s")({"trace": None}) is None
 
 
 @pytest.mark.parametrize("tb", [False, True])
